@@ -9,8 +9,9 @@ CUDA toolkit.  Phases, each printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel built from ``tpushare_torch/ops/csrc/*.cu`` by
    ``nvcc`` for ``sm_90a`` (one compiler per source, started together);
-   for K1, ptxas's lines of both instantiations (registers, spills, any
-   serialised wgmma) and whether its SASS holds ``HGMMA`` (wgmma),
+   for K1 and for K3/K4, ptxas's lines of every instantiation (registers,
+   spills, any serialised wgmma: each must show 0 bytes of spill and no
+   serialised wgmma) and whether their SASS holds ``HGMMA`` (wgmma),
    ``UTMALDG`` and ``UTMASTG`` (TMA), read with ``cuobjdump`` where the
    toolkit has it;
 3. K1 (flash forward) against its plain PyTorch version at the serving
@@ -31,7 +32,12 @@ CUDA toolkit.  Phases, each printing one JSON line:
 5. K3 + K4 (flash backward, dK/dV and dQ) against their plain version at
    the training shape (B = 1, S = 2048, 32 heads over 8 kv heads,
    D = 128, causal), with an lse cotangent, at a ragged S = 1000 with and
-   without a window of 256, and D = 64 non-causal;
+   without a window of 256, D = 64 non-causal, and their tile edges (K1's
+   edge S, windows around a tile, n_rep 1, 4 and 8 with and without the
+   lse cotangent); then K3's and K4's own device time by the profiler,
+   the port's whole backward's (dvec = rowsum(dO * O), K3, K4) and
+   SDPA's backward's (its own dO * O preprocess included), at S = 2048
+   and S = 8192 (``tpushare_torch.profile_k1 --bwd``);
 6. the server: Llama-3-8B at full width and depth with random seeded
    weights, an in-process ``LLMServer`` (8 slots, pages of 16), four
    concurrent ``/generate`` requests and one 2048-token ``/score``; the
@@ -68,8 +74,9 @@ Then it prints the ``kernels`` line (time on the card, the plain version's
 time, one PyTorch library call's time, and the least time the card could
 take; ``device_ms``, the kernel's own time by the profiler, and for K1
 and K3/K4 ``library_device_ms`` and ``library_kernel`` the same of the
-library call; for K1 also ``tflops`` and ``bound_share`` on its device
-time, and ``long_*`` at S = 8192), the
+library call; for K1, K3 and K4 also ``tflops`` and ``bound_share`` on
+their device time, and ``long_*`` at S = 8192; for K3/K4
+``backward_device_ms``, the port's whole backward), the
 card's name and power limit, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line, as does a machine without CUDA or a directory that
@@ -150,19 +157,31 @@ def phase_build():
         regs[name] = [ln.strip() for ln in text.splitlines()
                       if "registers" in ln or "spill" in ln]
         _cuda.library(name)
-    # K1 on Hopper's own paths: wgmma (HGMMA) and TMA (UTMALDG, UTMASTG)
-    # in its SASS, and ptxas's lines (registers, spills, any serialised
-    # wgmma) for both instantiations
-    k1_ptxas = {fn: lines for fn, lines in _cuda.ptxas_report(
-        "flash_fwd").items() if "flash_fwd_kernel" in fn}
-    check(len(k1_ptxas) == 2, f"K1's ptxas report: {k1_ptxas}")
-    sass = _cuda.sass_opcodes("flash_fwd", ("HGMMA", "UTMALDG", "UTMASTG"))
-    if sass is not None:
-        check(all(sass.values()), f"K1's SASS lacks an opcode: {sass}")
-    return {"seconds": time.perf_counter() - t0, "per_source_s": took,
-            "arch": "sm_90a", "ptxas": regs, "k1_ptxas": k1_ptxas,
-            "k1_sass": sass if sass is not None
-            else "cuobjdump not in the toolkit"}
+    # K1 and K3/K4 on Hopper's own paths: wgmma (HGMMA) and TMA (UTMALDG,
+    # UTMASTG) in their SASS, and ptxas's lines (registers, spills, any
+    # serialised wgmma) for every instantiation: no spill, no serialised
+    # wgmma
+    out = {"seconds": time.perf_counter() - t0, "per_source_s": took,
+           "arch": "sm_90a", "ptxas": regs}
+    for key, lib, kernels in (("k1", "flash_fwd", ("flash_fwd_kernel",)),
+                              ("k3k4", "flash_bwd",
+                               ("dkv_kernel", "dq_kernel"))):
+        report = {fn: lines for fn, lines in _cuda.ptxas_report(lib).items()
+                  if any(k in fn for k in kernels)}
+        check(len(report) == 2 * len(kernels),
+              f"{key}'s ptxas report: {report}")
+        for fn, lines in report.items():
+            text = " ".join(lines)
+            check("0 bytes spill stores, 0 bytes spill loads" in text
+                  and "serializ" not in text,
+                  f"{key}: {fn} spills or serialises its wgmmas: {lines}")
+        sass = _cuda.sass_opcodes(lib, ("HGMMA", "UTMALDG", "UTMASTG"))
+        if sass is not None:
+            check(all(sass.values()), f"{key}'s SASS lacks an opcode: {sass}")
+        out[f"{key}_ptxas"] = report
+        out[f"{key}_sass"] = (sass if sass is not None
+                              else "cuobjdump not in the toolkit")
+    return out
 
 
 def _flash_case(torch, attn, b, h, hkv, s, d, causal, window, seed):
@@ -498,12 +517,27 @@ def _bwd_case(torch, attn, b, h, hkv, s, d, causal, window, g_lse, seed):
                                   .max().item()}}
 
 
-def phase_k3k4(torch, flush):
-    import torch.nn.functional as F
+#: K3/K4's tile edges, as ``tests/test_torch_cuda.py`` holds them (K3's
+#: blocks own 64 keys and walk q tiles of 64, K4's own 128 queries and
+#: walk key tiles of 64): K1's edge S causal or not, both head dims, GQA
+#: ratios in turn, the lse cotangent at D = 64; windows around a tile;
+#: n_rep 1, 4 and 8 with and without the lse cotangent.  Where each query
+#: sees one key (S = 1, window 1) dS cancels to rounding noise, so those
+#: cases carry the lse cotangent.
+K3K4_EDGE_CASES = tuple(
+    (2, *K1_GQA[i % len(K1_GQA)], s, d, causal, 0, d == 64 or s == 1)
+    for i, s in enumerate(K1_EDGE_S) for d in (64, 128)
+    for causal in (True, False)) + tuple(
+    (2, 8, 2, s, d, True, w, w == 1) for w in (1, 127, 128, 129, 256)
+    for s in (129, 1000, 2048) for d in (64, 128)) + tuple(
+    (2, 8, hkv, 1000, 128, True, 0, g_lse) for hkv in (8, 2, 1)
+    for g_lse in (False, True))
 
+
+def phase_k3k4(torch, flush):
+    from tpushare_torch import profile_k1
     from tpushare_torch.ops import attention as attn
-    from tpushare_torch.utils.cuda_timing import (bound_ms, device_ms,
-                                                  event_ms)
+    from tpushare_torch.utils.cuda_timing import event_ms
 
     cases = []
     args, main = _bwd_case(torch, attn, 1, 32, 8, 2048, 128, True, 0, False,
@@ -513,46 +547,32 @@ def phase_k3k4(torch, flush):
                  (1, 32, 8, 1000, 128, True, 256, False),  # + window
                  (2, 8, 8, 512, 64, False, 0, False)):    # D = 64
         cases.append(_bwd_case(torch, attn, *case, SEED + 11)[1])
-    q, k, v, do = args[:4]
-    b, h, s, d = q.shape
-    hkv = k.shape[1]
-    main["dkv_ms"] = event_ms(lambda: attn.flash_bwd_dkv(*args), 20,
-                             flush)
-    main["dq_ms"] = event_ms(lambda: attn.flash_bwd_dq(*args), 20,
-                            flush)
-    main["dkv_device_ms"] = device_ms(lambda: attn.flash_bwd_dkv(*args), 20,
-                                      flush)[0]
-    main["dq_device_ms"] = device_ms(lambda: attn.flash_bwd_dq(*args), 20,
-                                     flush)[0]
+    edge_err = 0.0
+    for i, case in enumerate(K3K4_EDGE_CASES):
+        c = _bwd_case(torch, attn, *case, SEED + 200 + i)[1]
+        edge_err = max(edge_err, *c["rel_err"].values())
     main["plain_ms"] = event_ms(lambda: attn._flash_bwd_plain(*args),
                                3, flush)
-    # the library yardstick for K3 + K4 together: the backward of one
-    # scaled_dot_product_attention at the same shape
-    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
-                                       enable_gqa=True)
-    lib = lambda: torch.autograd.grad(  # noqa: E731
-        o, (qr, kr, vr), do, retain_graph=True)
-    main["library_ms"] = event_ms(lib, 20, flush)
-    main["library_device_ms"], lib_kernels = device_ms(lib, 20, flush)
-    main["library_kernel"] = sorted(lib_kernels)
-    del o, qr, kr, vr
-    # operations over the causal (query, key) pairs: K3 four products
-    # (S, dP, dV, dK), K4 three (S, dP, dQ), 2 FLOP per MAC each
-    pairs = b * h * s * (s + 1) / 2
-    qb, kvb, rowb = 2 * b * h * s * d, 2 * b * hkv * s * d, 4 * b * h * s
-    main["dkv_flops"], main["dq_flops"] = 8.0 * d * pairs, 6.0 * d * pairs
-    # bytes: every input read once, every output written once
-    main["dkv_bytes"] = 2 * qb + 2 * kvb + 2 * rowb + 2 * kvb
-    main["dq_bytes"] = 2 * qb + 2 * kvb + 2 * rowb + qb
-    for kern in ("dkv", "dq"):
-        main[f"{kern}_bound_ms"], main[f"{kern}_bound_by"] = bound_ms(
-            main[f"{kern}_flops"], main[f"{kern}_bytes"])
-        main[f"{kern}_tflops"] = main[f"{kern}_flops"] / main[
-            f"{kern}_ms"] / 1e9
     del args
     torch.cuda.empty_cache()
-    return {"main": main, "cases": cases}
+    # by the profiler: K3, K4, the port's whole backward and SDPA's
+    # backward (the library yardstick, its dO * O preprocess included),
+    # at the training shape and at S = 8192 (no plain version there)
+    for s, key in ((2048, "main"), (8192, "long")):
+        res = profile_k1.profile_bwd_shape(s, 20, flush, seed=SEED + 12)
+        if key == "main":
+            main.update({k: v for k, v in res.items()
+                         if k not in ("B", "H", "Hkv", "S", "D", "causal")})
+            main.update({"dkv_ms": res["dkv_event_ms"],
+                         "dq_ms": res["dq_event_ms"],
+                         "library_ms": res["library_event_ms"],
+                         "library_kernel": res["library_kernels"]})
+        else:
+            main["long"] = res
+        torch.cuda.empty_cache()
+    return {"main": main, "cases": cases,
+            "edge_cases": len(K3K4_EDGE_CASES),
+            "edge_max_rel_err": edge_err}
 
 
 def _post(port, path, body, timeout=900):
@@ -1189,6 +1209,15 @@ def main() -> int:
             "device_ms": bwd[f"{kern}_device_ms"],
             "library_device_ms": bwd["library_device_ms"],
             "library_kernel": bwd["library_kernel"],
+            "tflops": bwd[f"{kern}_tflops"],
+            "bound_share": bwd[f"{kern}_bound_share"],
+            "long_device_ms": bwd["long"][f"{kern}_device_ms"],
+            "long_bound_ms": bwd["long"][f"{kern}_bound_ms"],
+            "long_library_device_ms": bwd["long"]["library_device_ms"],
+            # the port's whole backward through autograd (dvec, K3, K4)
+            # against the library backward, like for like
+            "backward_device_ms": bwd["backward_device_ms"],
+            "long_backward_device_ms": bwd["long"]["backward_device_ms"],
             "plain_and_library_cover": "flash_bwd_dkv+flash_bwd_dq"})
     emit({"kernels": [
         # ms and library_ms by events around the call (host time in the

@@ -296,13 +296,30 @@ def _rel_err(a, ref):
             / ref.float().abs().max()).item()
 
 
-@pytest.mark.parametrize("s,d,h,hkv,causal,window,g_lse",
-                         [(1000, 128, 8, 2, True, 0, False),
-                          (256, 128, 4, 4, True, 64, True),
-                          (600, 64, 4, 2, True, 200, False),
-                          (192, 64, 4, 1, False, 0, True),
-                          (77, 64, 2, 2, True, 0, False),
-                          (320, 128, 8, 8, False, 0, False)])
+#: K3 and K4: a few mixed cases; then the tile edges (K3's blocks own 64
+#: keys and walk q tiles of 64, K4's own 128 queries and walk key tiles of
+#: 64), K1's edge S causal or not, both head dims, GQA ratios 1, 4 and 8 in
+#: turn, the lse cotangent at D = 64; windows around a tile; n_rep 1, 4
+#: and 8 with and without the lse cotangent.  Where each query sees one
+#: key (S = 1, window 1), P = 1 and dS = dO v - dO o = 0 up to rounding:
+#: dQ and dK are rounding noise, so those cases carry the lse cotangent,
+#: which gives them a gradient to hold.
+BWD_CASES = [(1000, 128, 8, 2, True, 0, False),
+             (256, 128, 4, 4, True, 64, True),
+             (600, 64, 4, 2, True, 200, False),
+             (192, 64, 4, 1, False, 0, True),
+             (77, 64, 2, 2, True, 0, False),
+             (320, 128, 8, 8, False, 0, False)] + [
+    (s, d, *FLASH_GQA[FLASH_EDGE_S.index(s) % len(FLASH_GQA)], causal, 0,
+     d == 64 or s == 1)
+    for s in FLASH_EDGE_S for d in (64, 128) for causal in (True, False)] + [
+    (s, d, 8, 2, True, w, w == 1) for w in (1, 127, 128, 129, 256)
+    for s in (129, 1000, 2048) for d in (64, 128)] + [
+    (1000, 128, 8, hkv, True, 0, g_lse) for hkv in (8, 2, 1)
+    for g_lse in (False, True)]
+
+
+@pytest.mark.parametrize("s,d,h,hkv,causal,window,g_lse", BWD_CASES)
 def test_flash_bwd_kernels_match_plain(cuda, s, d, h, hkv, causal, window,
                                        g_lse):
     args = _bwd_operands(cuda, 2, h, hkv, s, d, causal, window, g_lse)

@@ -98,6 +98,12 @@ class ModelConfig:
         return self.d_model // self.n_heads
 
 
+def wants_rolling(cfg: ModelConfig) -> bool:
+    """A sliding-window config whose window is smaller than its context:
+    the paged batcher holds such a sequence in a ring of pages."""
+    return cfg.window is not None and cfg.window < cfg.max_seq
+
+
 def llama3_8b() -> ModelConfig:
     """Llama-3-8B architecture: GQA 8 kv-heads, 128k vocab, theta 5e5."""
     return ModelConfig(vocab=128256, d_model=4096, n_layers=32, n_heads=32,

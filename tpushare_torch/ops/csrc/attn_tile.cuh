@@ -1,6 +1,7 @@
-// Shared warp-level machinery of the attention kernels (flash_fwd.cu,
-// paged_attn.cu, flash_bwd.cu): a block of 4 warps owns 64 query rows (16
-// per warp), streams keys through shared memory 64 at a time (through a
+// The warp-level machinery of the paged read (paged_attn.cu; flash_fwd.cu
+// and flash_bwd.cu, on sm90.cuh, take only its constants and small
+// helpers): a block of 4 warps owns 64 query rows (16 per warp), streams
+// keys through shared memory 64 at a time (through a
 // loader, so a quantized store can dequantize a tile), and keeps an online
 // softmax per row in registers.  Both products run on the tensor cores as
 // mma.sync m16n8k16 bf16 x bf16 -> f32; the softmax statistics and the

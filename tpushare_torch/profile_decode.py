@@ -96,6 +96,9 @@ def _summary(prof, wall_s: float, prof_wall_s: float, steps: int,
             "device_busy_share": busy_us / 1e6 / wall_s,
             "device_ops_per_step": launches / steps,
             "top_kernels": table(rows),
+            # the port's own kernels (C++ namespace tpushare), whatever
+            # their rank
+            "port_kernels": table([r for r in rows if "tpushare::" in r[1]]),
             # self time on the host, profiler overhead included
             "top_host_ops": table(host)}
 

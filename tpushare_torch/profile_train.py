@@ -7,10 +7,10 @@ Builds a ``Trainer`` with random seeded weights (AdamW, lr 3e-4,
 runs ``--steps`` train steps unprofiled, then again under
 ``torch.profiler`` (CPU and CUDA activity), and prints one JSON line:
 host wall per step, device busy time and its share of the unprofiled
-wall, device operations per step, the kernels with the most device time
-and the host operators with the most self time (as
-:mod:`tpushare_torch.profile_decode` reports a serving step), plus the
-peak device memory.  Needs a CUDA device.
+wall, device operations per step, the kernels with the most device time,
+the port's own kernels (K1, K3, K4) and the host operators with the most
+self time (as :mod:`tpushare_torch.profile_decode` reports a serving
+step), plus the peak device memory.  Needs a CUDA device.
 """
 
 from __future__ import annotations

@@ -2,14 +2,21 @@
 
 Counterpart of ``tpushare/serving/paged.py``.  The persistent cache is a
 pool of fixed-size pages (:func:`tpushare_torch.models.transformer.
-init_paged_kv`) and each admission reserves only
-``ceil((prompt + max_new) / page)`` pages, worst case, so a slot never
-starves for a page mid-decode.  Page allocation is host-side bookkeeping
-(free lists), touched only at admit and completion.  Page 0 is the trash
-page: inactive slots and unowned table entries write and read it, the
-position mask keeps it out of every softmax, and the allocator never
-hands it out.  A windowed config keeps every page of its sequence (the
-window mask does the rest; the JAX package's page ring would hold fewer).
+init_paged_kv`) and each admission reserves, worst case, the pages it
+will hold at once, so a slot never starves for a page mid-decode:
+``ceil((prompt + max_new) / page)`` for a full-causal config, and for a
+sliding-window config (window < max_seq) at most a RING of
+``ceil(window / page) + ceil(max_prefill_chunk / page) + 1`` pages,
+position range j mapped statically to ring page ``j % held``.  Page
+allocation is host-side bookkeeping (free lists), touched only at admit
+and completion.  Page 0 is the trash page: inactive slots and unowned
+table entries write and read it, the position mask keeps it out of every
+softmax, and the allocator never hands it out.  On the ring, every read
+derives a key's position from its table index (K2 and its plain version
+alike), so a page that holds a newer range where an older one is mapped
+sits past the query (causal mask) and one holding an older range sits at
+least ``held * page`` > window positions back (window mask): neither
+enters a softmax.
 
 Position striping: under a mesh with an ``sp`` axis of size > 1 the pool
 splits into ``sp`` equal stripes, stripe s owning global pages
@@ -21,11 +28,15 @@ as in the JAX package.
 
 Prefill runs through ``forward_paged_prefill`` and each tick through
 ``forward_paged_decode``; both read the pool through K2 when
-``cfg.attn_kernel == "kernel"``.  ``cfg.kv_dtype="int8"`` keeps the pool
-as int8 ``{"q","s"}`` stores, read through K2's int8 entry point; every
-byte of the pool is priced by ``ops.quant.kv_cache_bytes``, so a
-``pool_bytes`` budget buys about twice the pages under int8.  The prefix
-cache and the windowed page ring wait for later slices.
+``cfg.attn_kernel == "kernel"``.  A windowed prompt longer than its ring
+prefills in windows of ``max_prefill_chunk`` tokens through
+``forward_paged_prefill_chunk`` (a whole-prompt walk would write a ring
+page twice): the ring's chunk margin keeps every page a window writes
+older than what its first query may attend.  ``cfg.kv_dtype="int8"``
+keeps the pool as int8 ``{"q","s"}`` stores, read through K2's int8
+entry point; every byte of the pool is priced by
+``ops.quant.kv_cache_bytes``, so a ``pool_bytes`` budget buys about twice
+the pages under int8.  The prefix cache waits for a later slice.
 """
 
 from __future__ import annotations
@@ -48,13 +59,15 @@ class PagedContinuousBatcher(ContinuousBatcher):
 
     def __init__(self, params, cfg: transformer.ModelConfig, n_slots: int,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 device=None, pool_bytes: Optional[int] = None, mesh=None):
+                 device=None, pool_bytes: Optional[int] = None, mesh=None,
+                 max_prefill_chunk: int = 64):
         if cfg.max_seq % page_size:
             raise ValueError("max_seq must be a multiple of page_size")
         self.sp_shards = sp = tp_degree(mesh, "sp")
-        if sp > 1 and cfg.window is not None and cfg.window < cfg.max_seq:
+        if sp > 1 and transformer.wants_rolling(cfg):
             raise ValueError("position striping (sp mesh axis) requires a "
-                             "full-causal config")
+                             "full-causal config: the windowed page ring "
+                             "recycles pages in place")
         if pool_bytes is not None:
             if n_pages is not None:
                 raise ValueError("pass n_pages or pool_bytes, not both")
@@ -63,6 +76,10 @@ class PagedContinuousBatcher(ContinuousBatcher):
             n_pages = n_pages // sp * sp
         self.page_size = page_size
         self.pages_per_slot = cfg.max_seq // page_size
+        # the longest prefill window, a page multiple of at least a page;
+        # it sizes the windowed page ring's margin
+        self.max_prefill_chunk = max(
+            page_size, -(-max_prefill_chunk // page_size) * page_size)
         # default: every slot can hold a full max_seq sequence, + a trash
         # page per stripe; an explicit count rounds UP to equal stripes
         self.n_pages = (n_pages if n_pages is not None
@@ -75,13 +92,28 @@ class PagedContinuousBatcher(ContinuousBatcher):
             raise ValueError("need at least one non-trash page")
         super().__init__(params, cfg, n_slots, device=device, mesh=mesh)
 
-    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
-        return -(-(prompt_len + max_new) // self.page_size)
+    def _held_pages(self, prompt_len: int, max_new: int) -> int:
+        """The pages a request holds at once: every page of its sequence
+        (full causal), or at most the windowed page ring."""
+        n_ranges = -(-(prompt_len + max_new) // self.page_size)
+        if transformer.wants_rolling(self.cfg):
+            return min(n_ranges, self._ring_held_pages())
+        return n_ranges
+
+    def _ring_held_pages(self) -> int:
+        """The windowed page ring: the window's pages plus one whole
+        prefill chunk's plus one.  A chunk writes all its pages before its
+        attention runs, so a write at position p evicts p - held * page,
+        which the chunk margin keeps older than the window behind the
+        chunk's first query; a decode step writes one position."""
+        w_pages = -(-self.cfg.window // self.page_size)
+        c_pages = -(-self.max_prefill_chunk // self.page_size)
+        return w_pages + c_pages + 1
 
     def validate_request(self, prompt: List[int],
                          max_new_tokens: int) -> None:
         super().validate_request(prompt, max_new_tokens)
-        need = self._pages_needed(len(prompt), max_new_tokens)
+        need = self._held_pages(len(prompt), max_new_tokens)
         sp = self.sp_shards
         if sp > 1:
             # range j draws from stripe j % sp, each holding n_pages/sp - 1
@@ -158,15 +190,18 @@ class PagedContinuousBatcher(ContinuousBatcher):
                    for s, n in enumerate(need))
 
     def _reserve(self, slot: int, prompt_len: int, max_new: int) -> bool:
-        n = self._pages_needed(prompt_len, max_new)
-        if self._stripes_short(self._stripe_need(range(n))):
+        n_ranges = -(-(prompt_len + max_new) // self.page_size)
+        held = self._held_pages(prompt_len, max_new)
+        if self._stripes_short(self._stripe_need(range(held))):
             return False                # page backpressure
         self.page_table[slot, :] = 0
-        # range j from its stripe (unstriped: the one list, popped in the
-        # JAX batcher's order)
+        # page j from stripe j % sp (unstriped: the one list, popped in the
+        # JAX batcher's order); range j maps to pages[j % held], which a
+        # windowed ring (never striped) recycles for the request's life
         pages = [self._free_by_stripe[j % self.sp_shards].pop()
-                 for j in range(n)]
-        self.page_table[slot, :n] = pages
+                 for j in range(held)]
+        self.page_table[slot, :n_ranges] = [pages[j % held]
+                                             for j in range(n_ranges)]
         self._slot_pages[slot] = pages
         return True
 
@@ -178,10 +213,30 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
 
     def _prefill_into(self, slot: int, prompt: List[int]):
+        table = self._table(self.page_table[slot])
+        span = len(self._slot_pages[slot]) * self.page_size
+        if transformer.wants_rolling(self.cfg) and len(prompt) > span:
+            # the prompt outruns its ring: windows of a fixed width
+            # (max_prefill_chunk, or what is left of max_seq), each
+            # written and attended before the next
+            pos = 0
+            while pos < len(prompt):
+                width = min(self.max_prefill_chunk, self.cfg.max_seq - pos)
+                piece = prompt[pos:pos + width]
+                tokens = torch.zeros((1, width), dtype=torch.long,
+                                     device=self.device)
+                tokens[0, :len(piece)] = torch.tensor(piece)
+                logits_v, self.pools = transformer.forward_paged_prefill_chunk(
+                    self.params, tokens, self.cfg, self.pools, table, pos,
+                    len(piece) - 1, mesh=self.mesh)
+                pos += len(piece)
+                if pos < len(prompt):
+                    self.prefills += 1      # admit counts the last one
+            return logits_v
         tokens = torch.tensor([prompt], dtype=torch.long, device=self.device)
         logits, self.pools = transformer.forward_paged_prefill(
-            self.params, tokens, self.cfg, self.pools,
-            self._table(self.page_table[slot]), len(prompt), mesh=self.mesh)
+            self.params, tokens, self.cfg, self.pools, table, len(prompt),
+            mesh=self.mesh)
         return logits[0]      # [V]: the prompt's last-position logits
 
     def _step(self, tokens, lengths, temps, generators, top_ks, top_ps):
