@@ -36,7 +36,11 @@ CUDA toolkit.  Phases, each printing one JSON line:
    arm's edges, all four entry points (a 1-token context, contexts at
    split boundaries +-1 key, a window of 256 whose leading splits are
    empty, a table wider than every context, a stripe whose rows keep no
-   key, n_rep 1, 4 and 8, D 64 and 128, B = 1);
+   key, n_rep 1, 4 and 8, D 64 and 128, B = 1); then the prefill arm's
+   edges, all four entry points (the windowed ring's 64-token chunk at
+   a context of ~2000, S not a multiple of 128 at n_rep 1 and 8, a
+   window that skips whole key tiles, pages of 16, 8, 4, and 6 for the
+   bf16 pool);
 5. K3 + K4 (flash backward, dK/dV and dQ) against their plain version at
    the training shape (B = 1, S = 2048, 32 heads over 8 kv heads,
    D = 128, causal), with an lse cotangent, at a ragged S = 1000 with and
@@ -453,10 +457,77 @@ def _k2_decode_edges(torch, attn):
             "max_err": worst, "stripe_rows_without_keys": empty_rows}
 
 
+def _k2_prefill_edges(torch, attn):
+    """Every K2 entry point at S > 1 (the prefill arm) against the plain
+    version at ``profile_k2.PREFILL_EDGES`` (the int8 ones where the page
+    is a multiple of 4), on a pool of 600 pages with 2 kv heads, striped
+    as the batcher stripes it, each table 8 entries wider than its
+    longest row: out within OUT_TOL; striped, each stripe's m within
+    LSE_TOL and l within LSE_TOL relative, and a row that keeps no key of
+    a stripe out 0, m NEG_INF and l 0 exactly; every call one launch of
+    its prefill entry point."""
+    from tpushare_torch import profile_k2
+
+    worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
+    empty_rows = calls = 0
+    k2 = attn.paged_decode_attention
+    for i, (contexts, s, window, n_rep, d, page) in enumerate(
+            profile_k2.PREFILL_EDGES):
+        n_tbl = max(-(-c // page) for c in contexts) + 8
+        for int8 in (False, True) if page % 4 == 0 else (False,):
+            q, kp, vp, table, pos, stripes, per, _ = \
+                profile_k2.striped_operands(
+                    contexts, s, SEED + 400 + i, int8=int8, n_pages=600,
+                    hkv=2, h=2 * n_rep, d=d, page=page, n_tbl=n_tbl)
+            kind = "_int8" if int8 else ""
+            before = getattr(k2, f"launches{kind}")
+            out = k2(q, kp, vp, table, pos, window=window)
+            ref = attn._paged_plain(q, kp, vp, table, pos, window)
+            torch.cuda.synchronize()
+            calls += 1
+            err = (out.float() - ref.float()).abs().max().item()
+            check(getattr(k2, f"launches{kind}") == before + 1,
+                  f"K2{kind} prefill edge {i} did not run the prefill arm")
+            check(torch.isfinite(out.float()).all().item() and
+                  err <= OUT_TOL,
+                  f"K2{kind} prefill edge {contexts} S={s} {window=} "
+                  f"{n_rep=} {d=} {page=}: out err {err}")
+            worst["out"] = max(worst["out"], err)
+            for t, (sk, sv) in enumerate(stripes):
+                tbl, pmap = attn.striped_local_view(table, 2, t, per, page)
+                before = getattr(k2, f"launches{kind}_striped")
+                o, m, l = k2(q, sk, sv, tbl, pos, window=window,
+                             pos_map=pmap, return_stats=True)
+                po, pm, pl = attn._paged_plain(q, sk, sv, tbl, pos, window,
+                                               pos_map=pmap,
+                                               return_stats=True)
+                torch.cuda.synchronize()
+                calls += 1
+                e = {"out": (o.float() - po.float()).abs().max().item(),
+                     "m": (m - pm).abs().max().item(),
+                     "l_rel": ((l - pl).abs() / pl.clamp_min(1e-30))
+                     .max().item()}
+                none = pl == 0
+                check(getattr(k2, f"launches{kind}_striped") == before + 1
+                      and e["out"] <= OUT_TOL and e["m"] <= LSE_TOL
+                      and e["l_rel"] <= LSE_TOL
+                      and bool((l[none] == 0).all())
+                      and bool((m[none] == attn.NEG_INF).all())
+                      and bool((o[none] == 0).all()),
+                      f"striped K2{kind} prefill edge {contexts} S={s} "
+                      f"{window=} {n_rep=} {d=} {page=} stripe {t}: {e}")
+                empty_rows += int(none.sum())
+                worst = {k: max(v, e[k]) for k, v in worst.items()}
+            torch.cuda.empty_cache()
+    return {"cases": len(profile_k2.PREFILL_EDGES), "calls": calls,
+            "max_err": worst, "stripe_rows_without_keys": empty_rows}
+
+
 def phase_k2(torch, flush):
     """The bf16 pool and the int8 store, each at decode and at a
     2000-token prefill window, unstriped and on 2 position stripes; then
-    the decode arm's edges (``_k2_decode_edges``)."""
+    the decode arm's edges (``_k2_decode_edges``) and the prefill arm's
+    (``_k2_prefill_edges``)."""
     from tpushare_torch.ops import attention as attn
 
     contexts = [100, 371, 642, 913, 1184, 1455, 1726, 2000]
@@ -487,6 +558,7 @@ def phase_k2(torch, flush):
         prefix = "int8_" if int8 else ""
         res.update({prefix + "decode": dec, prefix + "prefill": pre})
     res["decode_edges"] = _k2_decode_edges(torch, attn)
+    res["prefill_edges"] = _k2_prefill_edges(torch, attn)
     return res
 
 

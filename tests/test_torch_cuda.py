@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from tpushare_torch.ops import attention as attn
-from tpushare_torch.profile_k2 import DECODE_EDGES
+from tpushare_torch.profile_k2 import DECODE_EDGES, PREFILL_EDGES
 
 OUT_TOL = 2e-2
 LSE_TOL = 1e-3
@@ -110,37 +110,56 @@ def _paged_operands(g, contexts, s, d, hkv=2, h=8, page=16, n_tbl=64,
     return q, kp, vp, table, pos
 
 
-PAGED_CASES = [([5, 100, 700], 1, None, 128),
-               ([64, 300], 1, 50, 128),
-               ([160], 160, None, 128),
-               ([48, 130], 16, 40, 128),
-               ([700, 1000], 1, 300, 128),
-               ([37, 300, 1000], 1, None, 64),
-               ([300], 300, None, 64)]
+#: the full Llama-3-8B layer: 32 heads over 8 kv heads, a table and pool
+#: wide enough for two rows of ~2000 tokens
+FULL = {"h": 32, "hkv": 8, "n_tbl": 128, "n_pages": 300}
+
+#: (contexts, S, window, D, operand kwargs): decode rows and prefill
+#: windows; then the prefill arm's edges: S = 2000 at full width, the
+#: windowed ring's 64-token chunk at a context of ~2000 (alone and in a
+#: window of 256), S not a multiple of 128 at n_rep 1 and 8, pages of 8,
+#: 4 and 6 (the bf16 pool takes any page)
+PAGED_CASES = [([5, 100, 700], 1, None, 128, {}),
+               ([64, 300], 1, 50, 128, {}),
+               ([160], 160, None, 128, {}),
+               ([48, 130], 16, 40, 128, {}),
+               ([700, 1000], 1, 300, 128, {}),
+               ([37, 300, 1000], 1, None, 64, {}),
+               ([300], 300, None, 64, {}),
+               ([2000], 2000, None, 128, FULL),
+               ([2000, 1990], 64, None, 128, FULL),
+               ([1990], 64, 256, 128, FULL),
+               ([300, 1000], 200, None, 128, {"h": 2, "hkv": 2}),
+               ([777], 777, None, 64, {"h": 16, "hkv": 2}),
+               ([513, 129], 129, 100, 128, {"page": 8, "n_tbl": 80}),
+               ([260], 130, None, 64, {"page": 4, "n_tbl": 80}),
+               ([150], 100, None, 128, {"page": 6, "n_tbl": 40})]
 
 
-@pytest.mark.parametrize("contexts,s,window,d", PAGED_CASES)
-def test_paged_kernel_matches_plain(cuda, contexts, s, window, d):
-    q, kp, vp, table, pos = _paged_operands(cuda, contexts, s, d)
+@pytest.mark.parametrize("contexts,s,window,d,kw", PAGED_CASES)
+def test_paged_kernel_matches_plain(cuda, contexts, s, window, d, kw):
+    q, kp, vp, table, pos = _paged_operands(cuda, contexts, s, d, **kw)
     out = attn.paged_decode_attention(q, kp, vp, table, pos, window=window)
     ref = attn._paged_plain(q, kp, vp, table, pos, window)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= OUT_TOL
 
 
-#: the bf16 cases, the CPU suite's S in {1, 4} with and without a window
-#: of 16 (fully masked leading pages) at both head dims
-INT8_CASES = PAGED_CASES + [([9, 21], 1, None, 64), ([9, 21], 4, None, 128),
-                            ([40, 60], 4, 16, 64), ([200], 1, 16, 128)]
+#: the bf16 cases whose page is a multiple of 4, the CPU suite's S in
+#: {1, 4} with and without a window of 16 (fully masked leading pages) at
+#: both head dims
+INT8_CASES = [c for c in PAGED_CASES if c[4].get("page", 16) % 4 == 0] + [
+    ([9, 21], 1, None, 64, {}), ([9, 21], 4, None, 128, {}),
+    ([40, 60], 4, 16, 64, {}), ([200], 1, 16, 128, {})]
 
 
-@pytest.mark.parametrize("contexts,s,window,d", INT8_CASES)
-def test_paged_int8_kernel_matches_plain(cuda, contexts, s, window, d):
+@pytest.mark.parametrize("contexts,s,window,d,kw", INT8_CASES)
+def test_paged_int8_kernel_matches_plain(cuda, contexts, s, window, d, kw):
     """K2's int8 entry point against the plain version on the same int8
     stores: every key and value bf16(f32(q) * s) in both."""
     from tpushare_torch.ops.quant import quantize_kv
 
-    q, kp, vp, table, pos = _paged_operands(cuda, contexts, s, d)
+    q, kp, vp, table, pos = _paged_operands(cuda, contexts, s, d, **kw)
     ks, vs = quantize_kv(kp), quantize_kv(vp)
     k2 = attn.paged_decode_attention
     # S = 1 goes to the decode arm, S > 1 to paged_attn.cu
@@ -205,23 +224,32 @@ def _striped_operands(g, contexts, s, d, sp, hkv=2, h=8, page=16, n_tbl=64,
     return q, kp, vp, table, pos, mesh, [(k[0], v[0]) for k, v in stripes]
 
 
-#: (contexts, S, window, d, sp): decode rows whose context ends before
-#: stripe 1's first position (5) or inside its first page (20), prefill
-#: windows whose leading rows see nothing of stripe 1, windows that skip
-#: whole entries, both head dims, three stripes
-STRIPED_CASES = [([5, 100, 700], 1, None, 128, 2),
-                 ([20, 300], 1, 50, 128, 2),
-                 ([160], 160, None, 128, 2),
-                 ([48, 130], 16, 40, 64, 2),
-                 ([700, 1000], 1, 300, 128, 2),
-                 ([37, 300, 1000], 1, None, 64, 3),
-                 ([300], 300, 100, 128, 3)]
+#: (contexts, S, window, d, sp, operand kwargs): decode rows whose
+#: context ends before stripe 1's first position (5) or inside its first
+#: page (20), prefill windows whose leading rows see nothing of stripe 1,
+#: windows that skip whole entries, both head dims, three stripes; then
+#: the prefill arm's edges as in PAGED_CASES (pages a multiple of 4)
+STRIPED_CASES = [([5, 100, 700], 1, None, 128, 2, {}),
+                 ([20, 300], 1, 50, 128, 2, {}),
+                 ([160], 160, None, 128, 2, {}),
+                 ([48, 130], 16, 40, 64, 2, {}),
+                 ([700, 1000], 1, 300, 128, 2, {}),
+                 ([37, 300, 1000], 1, None, 64, 3, {}),
+                 ([300], 300, 100, 128, 3, {}),
+                 ([2000], 2000, None, 128, 2,
+                  {"h": 32, "hkv": 8, "n_tbl": 128, "per": 150}),
+                 ([2000, 1990], 64, None, 128, 2,
+                  {"h": 32, "hkv": 8, "n_tbl": 128, "per": 150}),
+                 ([1000], 200, 256, 128, 2, {"h": 2, "hkv": 2}),
+                 ([777], 777, None, 64, 2, {"h": 16, "hkv": 2}),
+                 ([513, 129], 129, 100, 128, 2, {"page": 8, "n_tbl": 80}),
+                 ([260], 130, None, 64, 2, {"page": 4, "n_tbl": 80})]
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("contexts,s,window,d,sp", STRIPED_CASES)
+@pytest.mark.parametrize("contexts,s,window,d,sp,kw", STRIPED_CASES)
 def test_paged_striped_kernels_match_plain(cuda, contexts, s, window, d, sp,
-                                           int8):
+                                           kw, int8):
     """K2's striped entry points (``tpushare_paged_attn_striped``,
     ``tpushare_paged_attn_int8_striped``) on each stripe against the plain
     version on the same local table and pos_map: out within 2e-2, m
@@ -231,7 +259,7 @@ def test_paged_striped_kernels_match_plain(cuda, contexts, s, window, d, sp,
     from tpushare_torch.ops.quant import quantize_kv
 
     q, kp, vp, table, pos, mesh, stripes = _striped_operands(
-        cuda, contexts, s, d, sp)
+        cuda, contexts, s, d, sp, **kw)
     if int8:
         kp, vp = quantize_kv(kp), quantize_kv(vp)
         stripes = [(quantize_kv(k), quantize_kv(v)) for k, v in stripes]
@@ -241,7 +269,8 @@ def test_paged_striped_kernels_match_plain(cuda, contexts, s, window, d, sp,
     per = attn._store_values(stripes[0][0]).shape[0]
     outs, ms, ls = [], [], []
     for t, (ks, vs) in enumerate(stripes):
-        tbl, pmap = attn.striped_local_view(table, sp, t, per, 16)
+        tbl, pmap = attn.striped_local_view(table, sp, t, per,
+                                            kw.get("page", 16))
         before = getattr(k2, counter)
         o, m, l = k2(q, ks, vs, tbl, pos, window=window, pos_map=pmap,
                      return_stats=True)
@@ -313,10 +342,64 @@ def test_paged_decode_kernels_match_plain(cuda, contexts, window, n_rep, d,
         assert (o[empty] == 0).all()
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("contexts,s,window,n_rep,d,page", PREFILL_EDGES)
+def test_paged_prefill_kernels_match_plain(cuda, contexts, s, window, n_rep,
+                                           d, page, int8):
+    """K2's four prefill entry points (``csrc/paged_attn.cu``, S > 1) on
+    the prefill arm's edges, as ``chip_smoke.py`` runs them: unstriped out
+    within 2e-2; on each of 2 stripes out within 2e-2, m within 1e-3, l
+    within 1e-3 relative, a row that keeps no key of a stripe out 0, m
+    NEG_INF and l 0 exactly; every call one launch of its prefill entry
+    point.  The int8 store takes pages of a multiple of 4 only."""
+    from tpushare_torch.ops.quant import quantize_kv
+
+    if int8 and page % 4:
+        with pytest.raises(ValueError, match="multiple of 4"):
+            q, kp, vp, table, pos = _paged_operands(
+                cuda, contexts, s, d, hkv=2, h=2 * n_rep, page=page,
+                n_tbl=max(-(-c // page) for c in contexts) + 8)
+            attn.paged_decode_attention(q, quantize_kv(kp), quantize_kv(vp),
+                                        table, pos, window=window)
+        return
+    q, kp, vp, table, pos, mesh, stripes = _striped_operands(
+        cuda, contexts, s, d, 2, h=2 * n_rep, page=page,
+        n_tbl=max(-(-c // page) for c in contexts) + 8, per=300)
+    if int8:
+        kp, vp = quantize_kv(kp), quantize_kv(vp)
+        stripes = [(quantize_kv(k), quantize_kv(v)) for k, v in stripes]
+    k2 = attn.paged_decode_attention
+    kind = "_int8" if int8 else ""
+    before = getattr(k2, f"launches{kind}")
+    out = k2(q, kp, vp, table, pos, window=window)
+    ref = attn._paged_plain(q, kp, vp, table, pos, window)
+    torch.cuda.synchronize()
+    assert getattr(k2, f"launches{kind}") == before + 1
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= OUT_TOL
+    for t, (ks, vs) in enumerate(stripes):
+        tbl, pmap = attn.striped_local_view(table, 2, t, 300, page)
+        before = getattr(k2, f"launches{kind}_striped")
+        o, m, l = k2(q, ks, vs, tbl, pos, window=window, pos_map=pmap,
+                     return_stats=True)
+        po, pm, pl = attn._paged_plain(q, ks, vs, tbl, pos, window,
+                                       pos_map=pmap, return_stats=True)
+        torch.cuda.synchronize()
+        assert getattr(k2, f"launches{kind}_striped") == before + 1
+        assert (o.float() - po.float()).abs().max().item() <= OUT_TOL
+        assert (m - pm).abs().max().item() <= LSE_TOL
+        assert ((l - pl).abs() / pl.clamp_min(1e-30)).max().item() <= LSE_TOL
+        empty = pl == 0
+        assert torch.equal(l[empty], pl[empty])
+        assert (m[empty] == attn.NEG_INF).all()
+        assert (o[empty] == 0).all()
+
+
 def test_k2_arms_by_kernel_name(cuda):
     """By the profiler's kernel names: S = 1 launches the decode kernel
-    (its splits folded in its own tail: one kernel a call) and never
-    paged_attn_kernel; S > 1 launches paged_attn_kernel, as before."""
+    (its splits folded in its own tail: one kernel a call) and never the
+    prefill arm's; S > 1 launches the prefill arm's Hopper kernel
+    (``paged_prefill_kernel`` of ``csrc/paged_attn.cu``), one a call."""
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(s):
@@ -332,7 +415,7 @@ def test_k2_arms_by_kernel_name(cuda):
 
     decode, prefill = kernels(1), kernels(16)
     assert len(decode) == 1 and "paged_decode_kernel" in decode[0]
-    assert len(prefill) == 1 and "paged_attn_kernel" in prefill[0]
+    assert len(prefill) == 1 and "paged_prefill_kernel" in prefill[0]
 
 
 def test_paged_decode_on_two_streams(cuda):

@@ -463,6 +463,154 @@ def _paged_plain(q, k_store, v_store, page_table, positions,
     return out
 
 
+#: K2's prefill arm (S > 1, ``csrc/paged_attn.cu``): the packed GQA rows
+#: of one (row, kv head) a block owns, the rows of each of its two
+#: consumer warpgroups, and the keys of a tile
+PREFILL_TILE_ROWS = 128
+PREFILL_CONSUMER_ROWS = 64
+PREFILL_TILE_KEYS = 128
+_INT_MAX = 2 ** 31 - 1
+
+
+def prefill_schedule(s: int, n_rep: int):
+    """The prefill kernel's block order within one (row, kv head): for
+    band k = 0, 1, ... (each q head's last 128 positions first, the
+    heaviest causal rows) and q head hh, the packed row where that
+    block's 128-row tile starts, or None where the band holds no tile
+    start (the block returns at once).  Band k of head hh is packed rows
+    ``[hh*s + max(s - 128(k+1), 0), hh*s + s - 128k)``."""
+    t = PREFILL_TILE_ROWS
+    out = []
+    for k in range(-(-s // t)):
+        for hh in range(n_rep):
+            lo, hi = hh * s + max(s - t * (k + 1), 0), hh * s + s - t * k
+            r0 = -(-lo // t) * t
+            out.append(r0 if r0 < hi else None)
+    return out
+
+
+def _prefill_key_range(pos, window: int, page: int, n_tbl: int,
+                       pos_map=None) -> Tuple[int, int]:
+    """``[begin, end)`` in walk index (table entry * page + lane) of the
+    keys that a consumer's rows, at positions ``pos``, can keep: up to the
+    last entry starting at or before the last position, from the first
+    entry the window reaches.  (0, 0) when there is no row or no key."""
+    if pos.numel() == 0:
+        return 0, 0
+    lo, hi = int(pos.min()), int(pos.max())
+    if pos_map is None:
+        end = min(hi + 1, n_tbl * page)
+        begin = max(lo - window + 1, 0) if window else 0
+    else:
+        pm = pos_map.long()
+        end = int((pm <= hi).sum()) * page
+        begin = int((pm + page - 1 <= lo - window).sum()) * page \
+            if window else 0
+    return (begin, end) if begin < end else (0, 0)
+
+
+def _paged_prefill_plain(q, k_store, v_store, page_table, positions,
+                         window: Optional[int], pos_map=None,
+                         return_stats: bool = False, walk=None):
+    """K2's prefill arm's walk written out (the decomposition of
+    ``csrc/paged_attn.cu``'s Hopper body; nothing on the main path calls
+    it).  For each (row, kv head), the packed GQA rows (row r of kv head
+    kh is head kh * n_rep + r // S at position r % S) in tiles of 128,
+    each tile two consumers of 64 rows.  A consumer's key range comes
+    from its rows' positions and the window (:func:`_prefill_key_range`);
+    the tile's walk starts at the 128-key tile holding its consumers'
+    first key and ends after their last.  A consumer folds the 128-key
+    tiles of its own range into an online softmax (f32 m, l, acc; p
+    rounded to the values' dtype before PV): unmasked where every one of
+    its rows keeps every key of the tile, masked otherwise; keys past the
+    block's range read as zeros at position INT_MAX.  A consumer with no
+    key writes out 0, m NEG_INF, l 0.  Returns as :func:`_paged_plain`.
+    ``walk``, a list, receives one dict a consumer: its rows, tiles
+    walked (``t_lo``, ``t_hi`` from the block's first tile ``kb``) and
+    how many it folded whole and masked."""
+    b, h, s, d = q.shape
+    kq = _store_values(k_store)
+    hkv, page = kq.shape[1], kq.shape[2]
+    n_rep, n_tbl = h // hkv, page_table.shape[1]
+    rows, n_keys = n_rep * s, n_tbl * page
+    win = int(window or 0)
+    tk, half = PREFILL_TILE_KEYS, PREFILL_CONSUMER_ROWS
+    kk = _gather_store(k_store, page_table, q.dtype)
+    vv = _gather_store(v_store, page_table, q.dtype)
+    base = (pos_map.long() if pos_map is not None
+            else torch.arange(n_tbl, device=q.device) * page)
+    k_pos = (base[:, None] + torch.arange(page, device=q.device)).reshape(-1)
+    qp = q.reshape(b, hkv, rows, d).float()
+    prow = positions.long().repeat(1, n_rep)             # [B, rows]
+    out = torch.zeros(b, hkv, rows, d, dtype=torch.float32, device=q.device)
+    m = torch.full((b, hkv, rows), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    scale = 1.0 / math.sqrt(d)
+    for bi in range(b):
+        for kh in range(hkv):
+            for r0 in range(0, rows, PREFILL_TILE_ROWS):
+                cons = []
+                for c in range(PREFILL_TILE_ROWS // half):
+                    ra = r0 + c * half
+                    rb = min(ra + half, rows)
+                    pos = prow[bi, ra:rb] if ra < rows else prow[bi, :0]
+                    cons.append((ra, rb, pos, _prefill_key_range(
+                        pos, win, page, n_tbl, pos_map)))
+                live = [x[3] for x in cons if x[3][0] < x[3][1]]
+                kb = min(x[0] for x in live) // tk * tk if live else 0
+                ke = max(x[1] for x in live) if live else 0
+                for ra, rb, pos, (cb, ce) in cons:
+                    if cb >= ce:
+                        continue
+                    t_lo, t_hi = (cb - kb) // tk, -(-(ce - kb) // tk)
+                    qr = qp[bi, kh, ra:rb]
+                    mm = torch.full((rb - ra,), NEG_INF, device=q.device)
+                    ll = torch.zeros(rb - ra, device=q.device)
+                    acc = torch.zeros(rb - ra, d, device=q.device)
+                    n_whole = 0
+                    p_lo, p_hi = int(pos.min()), int(pos.max())
+                    for i in range(t_lo, t_hi):
+                        keys = kb + i * tk + torch.arange(tk, device=q.device)
+                        inside = keys < ke
+                        idx = keys.clamp(max=n_keys - 1)
+                        kt = kk[bi, kh, idx].float() * inside[:, None]
+                        vt = vv[bi, kh, idx] * inside[:, None].to(vv.dtype)
+                        kp = torch.where(inside, k_pos[idx], _INT_MAX)
+                        sc = qr @ kt.T * scale
+                        whole = (int(kp[-1]) <= p_lo and
+                                 (not win or int(kp[0]) > p_hi - win))
+                        if whole:
+                            keep = None
+                        else:
+                            keep = kp[None, :] <= pos[:, None]
+                            if win:
+                                keep &= kp[None, :] > pos[:, None] - win
+                            sc = sc.masked_fill(~keep, NEG_INF)
+                        n_whole += whole
+                        m_new = torch.maximum(mm, sc.amax(dim=-1))
+                        alpha = torch.exp(mm - m_new)
+                        p = torch.exp(sc - m_new[:, None])
+                        if keep is not None:
+                            p = p * keep
+                        ll = ll * alpha + p.sum(dim=-1)
+                        acc = acc * alpha[:, None] + (
+                            p.to(vt.dtype).float() @ vt.float())
+                        mm = m_new
+                    out[bi, kh, ra:rb] = acc / ll.clamp_min(1e-30)[:, None]
+                    m[bi, kh, ra:rb] = mm
+                    l[bi, kh, ra:rb] = ll
+                    if walk is not None:
+                        walk.append({"b": bi, "kh": kh, "rows": (ra, rb),
+                                     "kb": kb, "t_lo": t_lo, "t_hi": t_hi,
+                                     "whole": n_whole,
+                                     "masked": t_hi - t_lo - n_whole})
+    out = out.reshape(b, h, s, d).to(q.dtype)
+    if return_stats:
+        return out, m.reshape(b, h, s), l.reshape(b, h, s)
+    return out
+
+
 #: the least number of keys a split of K2's decode arm covers
 DECODE_SPLIT_KEYS = 256
 #: the most splits the decode arm cuts a table into (a wider table gets

@@ -1,6 +1,7 @@
 """K2's own device time on the card, entry point by entry point.
 
     python -m tpushare_torch.profile_k2 [--against DIR] [--iters N]
+        [--shapes decode,prefill,chunk,short]
 
 Times, by ``torch.profiler`` (the kernels' own durations, the 50 MB L2
 flushed before every call), the four K2 entry points (bf16 pool, int8
@@ -8,12 +9,15 @@ store, and each striped on stripe 0 of 2) at ``chip_smoke.py``'s two
 shapes on the full Llama-3-8B layer pool (32 heads over 8 kv heads,
 D = 128, pages of 16, 512 table entries a row): ``decode`` (8 rows of
 contexts 100-2000, S = 1, through the decode arm ``csrc/paged_decode.cu``)
-and ``prefill`` (one 2000-token window, through ``csrc/paged_attn.cu``).
-Each is first held to the plain version (out, and the striped m and l).
-Prints one JSON line a (entry point, shape): the device time, the
-kernels launched and their launches a call, the split plan the timed
-decode launches were given, the least time the card could take and the
-rate in GB/s.
+and ``prefill`` (one 2000-token window, through ``csrc/paged_attn.cu``);
+``--shapes chunk`` adds S = 64 at the decode contexts (the windowed
+ring's chunk, also the prefill arm).  Each is first held to the plain
+version (out, and the striped m and l).  Prints one JSON line a (entry
+point, shape): the device time, the kernels launched and their launches
+a call, the split plan the timed decode launches were given, the least
+time the card could take and the rate in GB/s.  At ``prefill`` it also
+times K1 on the same q and the same 2000 keys laid out contiguously (a
+yardstick of what the paged read should approach).
 
 With ``--against DIR`` (the root of another checkout, e.g. a ``git
 archive`` of a parent commit unpacked into a git-ignored directory) it
@@ -57,6 +61,23 @@ DECODE_EDGES = (([1, 9, 255, 256, 257], None, 4, 128),
                 ([1, 255, 513, 2000], None, 4, 64),
                 ([769], None, 8, 64),
                 ([2560], 256, 4, 128))
+#: the prefill arm's edges (S > 1, ``csrc/paged_attn.cu``): (contexts,
+#: S, window, n_rep, D, page), q at each row's last S positions: the
+#: windowed ring's 64-token chunk at a context of ~2000, alone and in a
+#: window of 256; S not a multiple of 128 at n_rep 1 (tiles that cross a
+#: q head) and at n_rep 8; a window that skips whole key tiles; pages of
+#: 8 and 4; a page of 6 (the bf16 pool takes any page, the int8 store a
+#: multiple of 4: its entry points skip it).  ``chip_smoke.py`` and the
+#: ``cuda`` tests run each through every entry point that takes its page,
+#: the striped ones on each of 2 stripes.
+PREFILL_EDGES = (([2000, 1990], 64, None, 4, 128, 16),
+                 ([1990, 700], 64, 256, 4, 128, 16),
+                 ([300, 1000], 200, None, 1, 128, 16),
+                 ([777], 777, None, 8, 64, 16),
+                 ([1000, 900], 1000, 300, 4, 128, 16),
+                 ([513, 129], 129, 100, 4, 128, 8),
+                 ([260], 130, None, 4, 64, 4),
+                 ([150], 100, None, 4, 128, 6))
 ENTRY_POINTS = ("bf16", "int8", "bf16_striped", "int8_striped")
 
 
@@ -161,15 +182,22 @@ def read_cost(contexts, s, int8, n_tbl=512, hkv=8, h=32, d=128, page=16,
     return 4.0 * d * h * pairs, nbytes
 
 
+#: shape -> (contexts, S): ``decode`` and ``short`` go to the decode arm,
+#: ``prefill`` (one 2000-token window) and ``chunk`` (the windowed ring's
+#: 64-token chunk at the decode contexts) to the prefill arm
+SHAPES = {"decode": (DECODE_CONTEXTS, 1),
+          "short": (SHORT_CONTEXTS, 1),
+          "prefill": ((2000,), 2000),
+          "chunk": (DECODE_CONTEXTS, 64)}
+
+
 def entry_case(entry: str, shape: str, seed: int = 0):
     """The operands of one entry point at one of chip_smoke.py's shapes:
     (args, kwargs, cost) for ``paged_decode_attention(*args,
     **kwargs)``, cost = (FLOPs, bytes); striped entry points read stripe
     0 of 2 with its local table and pos_map."""
     int8 = entry.startswith("int8")
-    contexts, s = {"decode": (DECODE_CONTEXTS, 1),
-                   "short": (SHORT_CONTEXTS, 1),
-                   "prefill": ((2000,), 2000)}[shape]
+    contexts, s = SHAPES[shape]
     if not entry.endswith("striped"):
         args = paged_operands(contexts, s, seed, int8=int8)
         return args, {}, read_cost(contexts, s, int8)
@@ -236,7 +264,7 @@ def profile_case(entry: str, shape: str, iters: int, flush,
     res.update({"device_ms": ms, "kernels": kernels, "bound_ms": bound,
                 "bound_by": by, "x_bound": ms / bound,
                 "gbps": nbytes / ms / 1e6, "bytes": nbytes, "flops": flops})
-    if shape != "prefill":
+    if SHAPES[shape][1] == 1:
         res["split_pages"], res["n_splits"] = \
             attn.paged_decode_attention.decode_plan
     if against is not None:
@@ -252,6 +280,24 @@ def profile_case(entry: str, shape: str, iters: int, flush,
     return res
 
 
+def k1_yardstick(iters: int, flush, seed: int = 0) -> dict:
+    """K1 (``flash_attention_lse``, causal) on the prefill shape's q and
+    its 2000 keys laid out contiguously ([1, 8, 2000, 128]), the same
+    (query, key) pairs: what the paged read should approach, not a
+    library row.  Its device time by the profiler, against the same
+    bound as K2's bf16 prefill row."""
+    args = paged_operands((2000,), 2000, seed)
+    q, k_pool, v_pool, table = args[:4]
+    k, v = (attn.paged_gather(x, table[:, :125]).contiguous()
+            for x in (k_pool, v_pool))
+    fn = lambda: attn.flash_attention_lse(q, k, v)  # noqa: E731
+    ms, kernels = device_ms(fn, iters, flush)
+    flops, nbytes = read_cost((2000,), 2000, False)
+    bound, by = bound_ms(flops, nbytes)
+    return {"phase": "k1_yardstick", "device_ms": ms, "kernels": kernels,
+            "bound_ms": bound, "bound_by": by, "x_bound": ms / bound}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m tpushare_torch.profile_k2")
     ap.add_argument("--against", default=None,
@@ -259,7 +305,8 @@ def main(argv=None) -> int:
                          "library is timed in turns with this one")
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--shapes", default="decode,prefill",
-                    help="of decode, prefill and short (8 one-page rows)")
+                    help="of decode, prefill, chunk (S = 64 at the decode "
+                         "contexts) and short (8 one-page rows)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_k2 needs a CUDA device")
@@ -272,6 +319,10 @@ def main(argv=None) -> int:
             res.update({"phase": "k2", "device": dev})
             print(json.dumps(res), flush=True)
             torch.cuda.empty_cache()
+        if shape == "prefill":
+            res = k1_yardstick(args.iters, flush)
+            res["device"] = dev
+            print(json.dumps(res), flush=True)
     return 0
 
 

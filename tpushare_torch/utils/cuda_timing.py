@@ -53,7 +53,7 @@ def _device_kernels(prof) -> dict:
     return out
 
 
-def device_ms(fn, iters: int, flush: torch.Tensor):
+def device_ms(fn, iters: int, flush: torch.Tensor, attempts: int = 3):
     """The device time of one call of ``fn``: the summed durations of the
     kernels it launches, by ``torch.profiler``, mean over ``iters`` calls,
     each after the L2 is flushed (the flush's own kernels left out).
@@ -65,29 +65,38 @@ def device_ms(fn, iters: int, flush: torch.Tensor):
     window opens with flushes that it may lose: the flush's names come
     from a window of three, and the timed window has two before its
     first call; a kernel of the call seen a number of times that is not
-    a multiple of ``iters`` raises."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            flush.zero_()
-        torch.cuda.synchronize()
-    flush_names = set(_device_kernels(prof))
+    a multiple of ``iters`` raises.  A window that came back empty, or
+    with launches lost, is taken again, up to ``attempts`` times (a
+    window of three flushes once came back empty)."""
+    flush_names = set()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                flush.zero_()
+            torch.cuda.synchronize()
+        flush_names = set(_device_kernels(prof))
+        if flush_names:
+            break
     if not flush_names:
         raise RuntimeError("the profiler saw no kernel of the L2 flush")
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            flush.zero_()
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    kernels = {k: v for k, v in _device_kernels(prof).items()
-               if k not in flush_names}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                flush.zero_()
+            for _ in range(iters):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        kernels = {k: v for k, v in _device_kernels(prof).items()
+                   if k not in flush_names}
+        lost = {k: n for k, (_, n) in kernels.items() if n % iters}
+        if kernels and not lost:
+            break
     if not kernels:
         raise RuntimeError("the profiler saw no device kernel of the call")
-    lost = {k: n for k, (_, n) in kernels.items() if n % iters}
     if lost:
         raise RuntimeError(f"the profiler lost launches of the call: {lost} "
                            f"in {iters} calls")
