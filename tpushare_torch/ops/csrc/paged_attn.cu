@@ -313,12 +313,18 @@ constexpr int kHalfBytes = kTile * 64 * 2;  // one 64-column bf16 half
 constexpr int kBlockThreads = 3 * 128;      // producer + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerBar = 3;  // named barrier of the producer warpgroup
-// setmaxnreg: the producer's address arithmetic and int8 dequantization
-// need more than the 24 registers a TMA-only producer keeps
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
-static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536,
-              "setmaxnreg split exceeds the register file");
+// setmaxnreg: the producer's copies and int8 dequantization need more
+// than the 24 registers a TMA-only producer keeps (at 40 it spilled).
+// The launch gives each of the 384 threads 168 registers, and the
+// consumers' setmaxnreg.inc takes only what the producer's .dec gave back
+// (asked for more, it waits for ever): 128 * (168 - P) >= 256 * (C - 168)
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
+              "the consumers' setmaxnreg.inc would wait for ever");
+// the producer's rows of a tile in flight, tile i in slot i % 3 (see
+// Producer::issue)
+constexpr int kSlotRing = 3;
 
 // one int8 tile in flight: raw K or V rows of 128 keys and their scales
 template <int D>
@@ -347,6 +353,8 @@ struct Smem {
   // producer's waits)
   static constexpr int kPosSlots = kStages + 1;
   int tile_pos[kPosSlots][kTile];
+  // each key's row in the pool's [n_pages * Hkv * page] rows
+  uint32_t tile_slot[kSlotRing][kTile];
   uint64_t q_full;
   uint64_t k_full[kStages], k_empty[kStages];
   uint64_t v_full[kStages], v_empty[kStages];
@@ -393,30 +401,36 @@ struct Producer {
     return is_v ? sm.v[s][0] : sm.k[s][0];
   }
 
-  // start the copies of K or V tile i (its raw int8 rows into raw slot
-  // `rs`, or bf16 rows straight into its stage once the stage is free);
-  // keys past ke are zero-filled
+  // Start the copies of K or V tile i: its raw int8 rows into raw slot
+  // `rs`, or its bf16 rows straight into its stage once the stage is
+  // free; keys past ke are zero-filled.  K's issue first writes each
+  // key's pool row (one division by the page a thread) into tile_slot,
+  // which V's issue of the same tile reads again: a thread rewrites slot
+  // i % 3 only after the barrier of tile i + 2's issue, which every
+  // thread reaches after its reads of tile i.
   __device__ __forceinline__ void issue(bool is_v, int i, int rs) {
     const int key0 = kb + i * kTile;
+    uint32_t* rows = sm.tile_slot[i % kSlotRing];
+    if (!is_v)
+      rows[tid] = static_cast<uint32_t>(slot(min(key0 + tid, ke - 1)));
+    // int8: also every thread is done dequantizing the load that used
+    // this raw slot
+    if (kInt8 || !is_v) sm90::named_barrier(kProducerBar, 128);
     if constexpr (kInt8) {
-      // every thread is done dequantizing the load that used this slot
-      sm90::named_barrier(kProducerBar, 128);
       RawSlot<D>& raw = sm.raw.slot[rs];
       const int8_t* src = is_v ? pool.vq : pool.kq;
       constexpr int kC = D / 16;  // 16-byte chunks a raw row
       const int c = tid % kC;
-      for (int r = tid / kC; r < kTile; r += 128 / kC) {
-        const int key = key0 + r;
+#pragma unroll 4
+      for (int r = tid / kC; r < kTile; r += 128 / kC)
         cp_async16(&raw.v[r][c * 16],
-                   src + slot(min(key, ke - 1)) * D + c * 16, key < ke);
-      }
+                   src + static_cast<size_t>(rows[r]) * D + c * 16,
+                   key0 + r < ke);
       // four scales a chunk: key0 is a multiple of 128 and page of 4, so
       // the four keys of a chunk share a page
       if (tid < kTile / 4) {
-        const int key = key0 + 4 * tid;
         const float* s = is_v ? pool.vs : pool.ks;
-        cp_async16(&raw.s[4 * tid], s + (key < ke ? slot(key) : 0),
-                   key < ke);
+        cp_async16(&raw.s[4 * tid], s + rows[4 * tid], key0 + 4 * tid < ke);
       }
     } else {
       const int s = i % kS;
@@ -425,11 +439,11 @@ struct Producer {
       const bf16* src = is_v ? pool.v : pool.k;
       constexpr int kC = D / 8;  // 16-byte chunks a bf16 row
       const int c = tid % kC;
-      for (int r = tid / kC; r < kTile; r += 128 / kC) {
-        const int key = key0 + r;
-        cp_async16(swz(dst, r, c), src + slot(min(key, ke - 1)) * D + c * 8,
-                   key < ke);
-      }
+#pragma unroll 4
+      for (int r = tid / kC; r < kTile; r += 128 / kC)
+        cp_async16(swz(dst, r, c),
+                   src + static_cast<size_t>(rows[r]) * D + c * 8,
+                   key0 + r < ke);
     }
     cp_async_commit();
   }
