@@ -67,7 +67,7 @@ namespace tpushare {
 // the others still run the mma.sync body (paged_attn_kernel) while the
 // redesign lands in stages.
 constexpr bool kHopperBf16 = true;
-constexpr bool kHopperInt8 = false;
+constexpr bool kHopperInt8 = true;
 constexpr bool kHopperStriped = false;
 
 // The striped walk's loader: the store's own loader, and beside it the
