@@ -12,10 +12,13 @@ replace the Pallas ones:
   entry point a store), which :func:`sp_striped_paged_decode_attention`
   runs once per position stripe before :func:`sp_merge_partials` folds
   the stripes' softmax partials.  Two arms: ``csrc/paged_attn.cu`` for
-  S > 1 (prefill windows, chunks) and ``csrc/paged_decode.cu`` for S = 1,
-  the table cut into splits (:func:`decode_splits`) whose partials the
-  kernel's last block folds (plain versions :func:`_paged_split_plain`
-  and :func:`_paged_combine_plain`);
+  S > 1 (prefill windows, chunks), warp-specialised on wgmma over 128-row
+  tiles of the packed GQA rows (plain version of its walk
+  :func:`_paged_prefill_plain`, block order :func:`prefill_schedule`),
+  and ``csrc/paged_decode.cu`` for S = 1, the table cut into splits
+  (:func:`decode_splits`) whose partials the kernel's last block folds
+  (plain versions :func:`_paged_split_plain` and
+  :func:`_paged_combine_plain`);
 * K3 and K4, :func:`flash_bwd_dkv` and :func:`flash_bwd_dq`
   (``csrc/flash_bwd.cu``): the flash backward, dK/dV and dQ.
 
@@ -700,7 +703,10 @@ def paged_decode_attention(q, k_store, v_store, page_table, positions,
     ``_int8_striped``), the table cut into :func:`decode_splits` whose
     partials the kernel's last block for each (row, kv head) folds; at
     S > 1 ``csrc/paged_attn.cu`` (``tpushare_paged_attn`` and its three
-    kin).  They take bf16 q, contiguous 16-byte-aligned leaves, head dim
+    kin), which stages the table in shared memory beside its K/V stages
+    and refuses (raises) a table wider than fits: about 15K entries for
+    a bf16 pool and 6K for an int8 store at D = 128, half that striped.
+    They take bf16 q, contiguous 16-byte-aligned leaves, head dim
     64 or 128, an int8 store's pages a multiple of 4 tokens, an int32
     table, pos_map and positions on the same card, and at S = 1 at most
     64 q heads a kv head; else the wrapper raises.  The table's entries

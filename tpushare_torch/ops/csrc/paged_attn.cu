@@ -1,258 +1,74 @@
-// K2: paged-pool attention read for Hopper (sm_90a).
+// K2's prefill arm: the paged-pool read at S > 1 for Hopper (sm_90a).
 //
 // Replaces tpushare/ops/attention.py::_paged_attn_kernel (the Pallas TPU
-// kernel launched by paged_decode_attention) at S > 1, for the bf16 store and the
+// kernel launched by paged_decode_attention) for every call with S > 1 (a
+// prefill window, a chunk of the windowed ring): the bf16 store and the
 // int8 store (quantized=True, the body's :664-692), each also in its
-// striped variant (with_pos_map + with_stats, :662, :699, :722-724; see
-// the end of this comment).  Reads one layer's pool [n_pages, Hkv, page,
-// D] through page_table [B, n_tbl] (int32, logical page order, 0-padded: page 0 is
-// the trash page) for queries q [B, H, S, D] at positions [B, S], and
-// writes out [B, H, S, D].  The GQA q-heads of kv head kh ride as rows
-// r*S + s of that kv head (head kh*n_rep + r), so each K/V page is read
-// once per kv head, never expanded.  Key position = table index * page +
-// lane; the mask keeps key <= position (and > position - window).
+// striped variant (with_pos_map + with_stats, :662, :699, :722-724).
+// Reads one layer's pool [n_pages, Hkv, page, D] through page_table [B,
+// n_tbl] (int32, logical page order, 0-padded: page 0 is the trash page)
+// for queries q [B, H, S, D] at positions [B, S], and writes out [B, H,
+// S, D].  A key's position is (pos_map ? pos_map[j] : j * page) + lane for
+// table entry j; the mask keeps key <= position (and > position -
+// window).  S = 1 goes to paged_decode.cu.
 //
-// Bound on an H100: bytes.  Decode (S = 1) reads every live K/V page once
-// and does ~2*n_rep FLOP per element read.  The TPU walked the table as a
-// sequential grid axis with the carry in scratch; here blocks run in no
-// order, so the walk is a loop inside one block per (64-row tile, kv head,
-// batch row) and nothing carries between blocks; the block stages its
-// page-table entries in shared memory once, then streams K/V tiles through
-// a two-stage cp.async ring.  The loop stops at the
-// last page any row of the tile can see and starts at the first tile the
-// window reaches: later or earlier entries are fully masked and would add
-// exactly zero.  Tiles that every row sees whole are folded unmasked.  Prefill windows put n_rep * S rows (up to 8192) through
-// here, tiled over the grid; decode (S = 1), where B * Hkv blocks would
-// leave most SMs idle, goes to paged_decode.cu.
+// Bound on an H100: operations.  A 2000-token window does ~33 GFLOP over
+// its causal pairs against ~8 MB of K/V, K1's work at S = 2048, so the
+// design is K1's (flash_fwd.cu, on sm90.cuh) with the keys read through
+// the page table:
 //
-// The int8 store {"q": int8 [n_pages, Hkv, page, D], "s": f32 [n_pages,
-// Hkv, page, 1]} halves the bytes a read moves.  Its ring stages hold a
-// tile's raw int8 K and V rows and their 64 f32 scales (16-byte cp.async
-// chunks: four scales a chunk, so page % 4 == 0); once a stage lands, the
-// block dequantizes it into one bf16 tile, each element bf16(f32(q) * s)
-// rounded as the TPU body rounds it, and the fold reads that tile through
-// the same ldmatrix fragments as the bf16 store.  Zero scales (the trash
-// page, unwritten lanes) dequantize to exact zeros; the position mask
-// keeps them out all the same.
+// * The n_rep q heads of kv head kh are one contiguous slab of q and of
+//   out, [n_rep * S, D] (row r: head kh * n_rep + r / S at position
+//   r % S), so each K/V page is read once per kv head, never expanded.  A
+//   block owns 128 of those rows of one (b, kh): Q arrives by one TMA
+//   load of q viewed as [B * Hkv, n_rep * S, D] (rows past the slab read
+//   as zeros) and out leaves by the clipped TMA store.
+// * Three warpgroups: a producer and two consumers of 64 rows.  Each
+//   consumer walks the key range of its own rows (from their positions
+//   and the window: up to the last entry any of them sees, from the first
+//   the window reaches), so a tile that crosses a q head widens only one
+//   consumer's walk; the block's producer loads the union.  A consumer
+//   only waits for and releases the tiles outside its range.  A consumer
+//   whose rows see no key writes out 0 (striped: m NEG_INF, l 0).
+// * The producer warpgroup copies 128-key K and V tiles, K one tile ahead
+//   of V, by cp.async: 16-byte chunks through the staged page-table rows
+//   into the 128-byte-swizzled layout wgmma's descriptors read, keys past
+//   the walk zero-filled; any page size.  After its copies land, each
+//   thread fences them for the async proxy (fence.proxy.async: wgmma
+//   reads shared memory through it and could see stale bytes without it)
+//   and arrives on the stage's full barrier.  The int8 store's raw rows
+//   and scales (four a 16-byte chunk, so page % 4 == 0) go into one of
+//   two raw slots while the producer dequantizes the previous tile into
+//   the stage, each element bf16(f32(q) * s) as the TPU body rounds it.
+// * The consumers run S = Q K^T as wgmma m64n128k16 SS and O += P V as
+//   RS with P from the S accumulator rounded to bf16 and V read
+//   transposed; tile j's S is issued before tile j - 1's P V, so the
+//   softmax overlaps the tensor cores.  Only diagonal, window-edge and
+//   ragged tiles are masked; a tile every row of the consumer keeps whole
+//   is folded unmasked.
+// * Blocks run band by band (each q head's last 128 positions first, the
+//   heaviest causal rows), and within a band the n_rep heads of one kv
+//   head side by side, so their K/V tiles come from L2.
 //
-// The striped variant (kStriped, entry points *_striped) reads one
-// position stripe of a pool striped over the sp mesh axis: its local
-// table's entry jj covers positions pos_map[jj] .. pos_map[jj] + page - 1,
-// sp * page apart, and it writes each row's softmax partials m (base e)
-// and l (unclamped) for the cross-stripe merge (sp_merge_partials in
-// ops/attention.py).  The walk index no longer equals the position: the
-// block stages pos_map beside the table, ends the walk after the entries
-// that start at or before the block's last position (a count: pos_map
-// increases), starts it at the first entry the window reaches, writes
-// each tile's 64 key positions (pos_map[key / page] + key % page) to
-// shared memory as the tile's copy starts, masks on those, and folds a
-// tile unmasked only when its first and last positions are inside every
-// row's range (a division by the page size for every element of a masked
-// tile made a prefill window slower than the unstriped kernel over twice
-// the keys).  A block whose rows see no key of the stripe walks nothing
-// and writes out = 0, m = NEG_INF, l = 0, which weighs 0 in the merge.
-// Tiles still start at
-// multiples of 64 in walk index, so the int8 loader's four-scale chunks
-// stay aligned.  Bound: bytes again, each stripe's launch reading about
-// 1/sp of the live keys.  The unstriped entry points instantiate the
-// kernel with kStriped false and run the code they ran before.
+// Numerics are K1's and the TPU kernel's: f32 scaled scores (base 2
+// inside), the finite NEG_INF mask, p multiplied by the keep mask (a
+// fully masked tile cannot poison the carry, :710-711), P rounded to bf16
+// before PV while l sums the f32 p, l clamped to 1e-30.
+//
+// The striped variant (kStriped) reads one position stripe's local table:
+// the block stages pos_map beside the table, a consumer's walk ends after
+// the entries that start at or before its last position and starts at the
+// first its window reaches (counts: pos_map increases), and the producer
+// writes each K tile's key positions to shared memory for the mask.  It
+// writes each row's softmax partials m (base e) and l (unclamped) for the
+// cross-stripe merge (sp_merge_partials).
 #include <climits>
 #include <type_traits>
 
 #include "paged_pool.cuh"
 #include "sm90.cuh"
+
 namespace tpushare {
-
-// The entry points that run the Hopper design (namespace prefill below);
-// the others still run the mma.sync body (paged_attn_kernel) while the
-// redesign lands in stages.
-constexpr bool kHopperBf16 = true;
-constexpr bool kHopperInt8 = true;
-constexpr bool kHopperStriped = false;
-
-// The striped walk's loader: the store's own loader, and beside it the
-// global positions of each tile's 64 keys (INT_MAX past key_end), written
-// when the tile's copy starts, so that the mask of a masked tile reads a
-// key's position from shared memory instead of dividing its walk index by
-// the page size for every element.  Tile key0 (a multiple of kKeys) keeps
-// its positions in half (key0 / kKeys) & 1 of tile_pos: a half is
-// rewritten only after the barrier that ends the fold of the tile two
-// back, as the ring's stages are.
-template <class Base>
-struct StripedLoader {
-  Base base;
-  int* tile_pos;     // [2 * kKeys]
-  const int* pos_s;  // the staged pos_map
-  int page;
-
-  __device__ __forceinline__ void copy(int stage, int key0,
-                                       int key_end) const {
-    base.copy(stage, key0, key_end);
-    int* tp = tile_pos + ((key0 / kKeys) & 1) * kKeys;
-    for (int i = threadIdx.x; i < kKeys; i += kThreads) {
-      const int key = key0 + i;
-      tp[i] = key < key_end ? pos_s[key / page] + key % page : INT_MAX;
-    }
-  }
-  __device__ __forceinline__ decltype(auto) tile(int stage) const {
-    return base.tile(stage);
-  }
-};
-
-// The striped variant's softmax partials of this lane's two rows (ia / ib
-// their [B, H, S] index, -1 = padding row): m back in base e, NEG_INF for a
-// row that kept no key; l, the sum of p, unclamped.  The four lanes of a
-// quad hold equal values; lane t = 0 writes.
-template <int D>
-__device__ __forceinline__ void store_stats(const WarpRows<D>& w,
-                                            float* m_out, float* l_out,
-                                            long long ia, long long ib) {
-  if ((threadIdx.x & 3) != 0) return;
-  if (ia >= 0) {
-    m_out[ia] = w.m[0] > kNegInf ? w.m[0] * kLn2 : kNegInf;
-    l_out[ia] = w.l[0];
-  }
-  if (ib >= 0) {
-    m_out[ib] = w.m[1] > kNegInf ? w.m[1] * kLn2 : kNegInf;
-    l_out[ib] = w.l[1];
-  }
-}
-
-// kStriped: the walk covers one position stripe's local table, entry jj
-// holding positions pos_map[jj] .. pos_map[jj] + page - 1 (pos_map
-// increasing), and the block also writes the rows' softmax partials m and
-// l.  Walk index key = jj * page + lane either way; without kStriped a
-// key's position is its walk index.
-template <int D, class Pool, bool kStriped>
-__global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const bf16* __restrict__ q, const Pool pool,
-                      const int* __restrict__ table,
-                      const int* __restrict__ pos_map,
-                      const int* __restrict__ positions,
-                      bf16* __restrict__ o, float* __restrict__ m_out,
-                      float* __restrict__ l_out, int H, int Hkv, int S,
-                      int page, int n_tbl, int window, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* tbl_s = reinterpret_cast<int*>(
-      smem + Pool::template smem_bytes<D>());  // [n_tbl]
-  int* pos_s = tbl_s + n_tbl;                  // [n_tbl], kStriped only
-  int* tile_pos = pos_s + n_tbl;               // [2 * kKeys], kStriped only
-  __shared__ int pos_lo, pos_hi;
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const int n_rep = H / Hkv;
-  const int rows = n_rep * S;
-  const int* pos_b = positions + static_cast<size_t>(b) * S;
-  const int* tbl_b = table + static_cast<size_t>(b) * n_tbl;
-  // row r of kv head kh -> [B, H, S] row of head kh*n_rep + r/S, position
-  // r%S; times D, its q/o offset
-  auto srow = [&](int r) {
-    return (static_cast<size_t>(b) * H + kh * n_rep + r / S) * S + r % S;
-  };
-  auto qrow = [&](int r) { return srow(r) * D; };
-
-  if (threadIdx.x == 0) {
-    pos_lo = INT_MAX;
-    pos_hi = -1;
-  }
-  __syncthreads();
-  if (threadIdx.x < kRows && r0 + static_cast<int>(threadIdx.x) < rows) {
-    const int p = pos_b[(r0 + threadIdx.x) % S];
-    atomicMin(&pos_lo, p);
-    atomicMax(&pos_hi, p);
-  }
-  __syncthreads();
-  int key_end, key_begin;
-  if constexpr (kStriped) {
-    // pos_map increases, so the entries any row sees are a prefix (those
-    // starting at or before pos_hi) and the entries wholly behind every
-    // row's window a prefix of that: count both
-    __shared__ int n_seen, n_behind;
-    if (threadIdx.x == 0) n_seen = n_behind = 0;
-    __syncthreads();
-    int seen = 0, behind = 0;
-    for (int j = threadIdx.x; j < n_tbl; j += kThreads) {
-      const int p0 = pos_map[j];
-      seen += p0 <= pos_hi;
-      behind += window > 0 && p0 + page - 1 <= pos_lo - window;
-    }
-    atomicAdd(&n_seen, seen);
-    atomicAdd(&n_behind, behind);
-    __syncthreads();
-    key_end = n_seen * page;
-    key_begin = n_behind * page / kKeys * kKeys;
-  } else {
-    key_end = min(pos_hi + 1, n_tbl * page);
-    key_begin = window > 0 ? max(pos_lo - window + 1, 0) / kKeys * kKeys : 0;
-  }
-  // the page-table entries this block walks (and their positions), staged
-  // once in shared memory
-  if (key_begin < key_end)
-    for (int j = key_begin / page + threadIdx.x; j <= (key_end - 1) / page;
-         j += kThreads) {
-      tbl_s[j] = tbl_b[j];
-      if constexpr (kStriped) pos_s[j] = pos_map[j];
-    }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int ra = r0 + warp * 16 + ((threadIdx.x & 31) >> 2);
-  const int rb = ra + 8;
-  const int pa = ra < rows ? pos_b[ra % S] : -1;
-  const int pb = rb < rows ? pos_b[rb % S] : -1;
-  WarpRows<D> w;
-  init_rows<D>(w, ra < rows ? q + qrow(ra) : nullptr,
-               rb < rows ? q + qrow(rb) : nullptr);
-
-  const bool live = r0 + warp * 16 < rows;
-  // the row of a key in the pool's [n_pages * Hkv * page] rows
-  auto slot = [=](int key) {
-    return (static_cast<size_t>(tbl_s[key / page]) * Hkv + kh) * page +
-           key % page;
-  };
-  // striped: the positions of the tile of walk index key (StripedLoader)
-  auto tile_of = [&](int key) {
-    return tile_pos + ((key / kKeys) & 1) * kKeys;
-  };
-  auto keep = [&](int half, int key) {
-    const int qp = half ? pb : pa;
-    if constexpr (kStriped) {
-      const int kp = tile_of(key)[key % kKeys];  // INT_MAX past key_end
-      return kp <= qp && (window <= 0 || kp > qp - window);
-    } else {
-      return key < key_end && key <= qp && (window <= 0 || key > qp - window);
-    }
-  };
-  // every live row of the block sits at a position in [pos_lo, pos_hi];
-  // a tile's positions increase along it, so its first and last key bound
-  // them (striped, a 64-key tile spans 64 / page entries that are not
-  // contiguous in position)
-  auto whole = [&](int key0) {
-    if constexpr (kStriped) {
-      const int* tp = tile_of(key0);
-      return tp[kKeys - 1] <= pos_lo &&
-             (window <= 0 || tp[0] > pos_hi - window);
-    } else {
-      return key0 + kKeys <= key_end && key0 + kKeys - 1 <= pos_lo &&
-             (window <= 0 || key0 > pos_hi - window);
-    }
-  };
-  const auto ld = pool.template loader<D>(smem, slot);
-  if constexpr (kStriped)
-    walk_tiles<D>(w, StripedLoader<decltype(ld)>{ld, tile_pos, pos_s, page},
-                  key_begin, key_end, scale, live, keep, whole);
-  else
-    walk_tiles<D>(w, ld, key_begin, key_end, scale, live, keep, whole);
-  if (live) {
-    store_rows<D>(w, ra < rows ? o + qrow(ra) : nullptr,
-                  rb < rows ? o + qrow(rb) : nullptr, nullptr, nullptr);
-    if constexpr (kStriped)
-      store_stats<D>(w, m_out, l_out,
-                     ra < rows ? static_cast<long long>(srow(ra)) : -1,
-                     rb < rows ? static_cast<long long>(srow(rb)) : -1);
-  }
-}
 
 // what a launch takes besides the pool
 struct Args {
@@ -267,61 +83,28 @@ struct Args {
   float scale;
 };
 
-template <int D, bool kStriped, class Pool>
-static void launch(const Pool& pool, const Args& a, cudaStream_t stream) {
-  const int rows = (a.H / a.Hkv) * a.S;
-  const dim3 grid((rows + kRows - 1) / kRows, a.Hkv, a.B);
-  const size_t smem =
-      Pool::template smem_bytes<D>() +
-      sizeof(int) * (kStriped ? 2 * a.n_tbl + 2 * kKeys : a.n_tbl);
-  cudaFuncSetAttribute(paged_attn_kernel<D, Pool, kStriped>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  paged_attn_kernel<D, Pool, kStriped><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(a.q), pool, static_cast<const int*>(a.table),
-      static_cast<const int*>(a.pos_map),
-      static_cast<const int*>(a.positions), static_cast<bf16*>(a.o),
-      static_cast<float*>(a.m), static_cast<float*>(a.l), a.H, a.Hkv, a.S,
-      a.page, a.n_tbl, a.window, a.scale);
-}
-
-template <bool kStriped, class Pool>
-static int dispatch(const Pool& pool, const Args& a, void* stream) {
-  if (a.B < 1 || a.S < 1 || a.Hkv < 1 || a.H % a.Hkv != 0 || a.page < 1 ||
-      a.n_tbl < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (a.D) {
-    case 64:
-      launch<64, kStriped>(pool, a, st);
-      break;
-    case 128:
-      launch<128, kStriped>(pool, a, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// The Hopper design of the prefill arm (see the top of this file).
 namespace prefill {
 
 constexpr int kTile = 128;                  // rows a block, keys a tile
 constexpr int kHalfBytes = kTile * 64 * 2;  // one 64-column bf16 half
 constexpr int kBlockThreads = 3 * 128;      // producer + two consumers
 constexpr int kConsumerWarps = 8;
+// route (b) on for the pages it takes (off: every page by cp.async)
+constexpr bool kUseTma = false;
 constexpr int kProducerBar = 3;  // named barrier of the producer warpgroup
-// setmaxnreg: the producer's copies and int8 dequantization need more
-// than the 24 registers a TMA-only producer keeps (at 40 it spilled).
-// The launch gives each of the 384 threads 168 registers, and the
-// consumers' setmaxnreg.inc takes only what the producer's .dec gave back
-// (asked for more, it waits for ever): 128 * (168 - P) >= 256 * (C - 168)
-constexpr int kProducerRegs = 56;
-constexpr int kConsumerRegs = 224;
-static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
-              "the consumers' setmaxnreg.inc would wait for ever");
+// setmaxnreg, by route: the TMA producer (one warp) keeps K1's 24
+// registers; the cp.async producer's copies and int8 dequantization need
+// more (at 40 it spilled).  The launch gives each of the 384 threads 168
+// registers, and the consumers' setmaxnreg.inc takes only what the
+// producer's .dec gave back (asked for more, it waits for ever):
+// 128 * (168 - P) >= 256 * (C - 168).
+template <bool kTma>
+struct Regs {
+  static constexpr int kProducer = kTma ? 24 : 56;
+  static constexpr int kConsumer = kTma ? 240 : 224;
+  static_assert(kProducer + 2 * kConsumer <= 3 * 168,
+                "the consumers' setmaxnreg.inc would wait for ever");
+};
 // the producer's rows of a tile in flight, tile i in slot i % 3 (see
 // Producer::issue)
 constexpr int kSlotRing = 3;
@@ -378,6 +161,9 @@ __device__ __forceinline__ unsigned char* swz(unsigned char* tile, int r,
 // What the producer warpgroup knows of a block's walk.
 template <int D, class Pool, bool kStriped>
 struct Producer {
+  // route (b) only: the pool's K and V leaves as [pages * Hkv, page, D]
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
   using Sm = Smem<D, std::is_same<Pool, Int8Pool>::value>;
   static constexpr bool kInt8 = std::is_same<Pool, Int8Pool>::value;
   static constexpr int kS = Sm::kStages;
@@ -475,6 +261,50 @@ struct Producer {
     }
     sm90::fence_proxy_async();
     sm90::mbar_arrive(full(is_v, s));
+  }
+
+  // Route (b), the bf16 pool at a page that divides the 128-key tile and
+  // fills whole 8-row swizzle atoms: K of tile i, then V of tile i - 1,
+  // each one TMA box (page rows x 64 columns) a page and half, issued by
+  // one lane of warp 0 against the stage's full barrier (1 arrival plus
+  // the bytes).  A tile's last pages past ke repeat the walk's last page:
+  // masked keys, never read as a NaN.  Striped, the warp first writes
+  // the K tile's key positions.
+  __device__ __forceinline__ void run_tma(int n) {
+    const int lane = tid & 31;
+    const int per = kTile / page;
+    auto load = [&](bool is_v, int i) {
+      const int s = i % kS;
+      sm90::mbar_wait(empty(is_v, s), ((i / kS) & 1) ^ 1);
+      if constexpr (kStriped) {
+        if (!is_v) {
+          int* tp = sm.tile_pos[i % Sm::kPosSlots];
+          for (int r = lane; r < kTile; r += 32) {
+            const int key = kb + i * kTile + r;
+            tp[r] = key < ke ? pos_s[key / page] + key % page : INT_MAX;
+          }
+          __syncwarp();
+        }
+      }
+      if (lane == 0) {
+        uint64_t* bar = full(is_v, s);
+        sm90::mbar_arrive_expect_tx(bar, Sm::kHalves * kHalfBytes);
+        const CUtensorMap* map = is_v ? tv : tk;
+        unsigned char* dst = stage(is_v, s);
+        const int j0 = kb / page + i * per, j_last = (ke - 1) / page;
+        for (int p = 0; p < per; ++p) {
+          const int slab = tbl_s[min(j0 + p, j_last)] * Hkv + kh;
+#pragma unroll
+          for (int h = 0; h < Sm::kHalves; ++h)
+            sm90::tma_load_3d(dst + h * kHalfBytes + p * page * 128, map,
+                              bar, 64 * h, 0, slab);
+        }
+      }
+    };
+    for (int i = 0; i <= n; ++i) {
+      if (i < n) load(false, i);
+      if (i > 0) load(true, i - 1);
+    }
   }
 
   // K of tile i, then V of tile i - 1; each load's copies are in flight
@@ -770,10 +600,13 @@ __device__ __forceinline__ void consume(Smem<D, kInt8>& sm,
   if (tid == 0) sm90::tma_store_wait_read();
 }
 
-template <int D, class Pool, bool kStriped>
+// kTma: route (b) (Producer::run_tma), else route (a) (Producer::run)
+template <int D, class Pool, bool kStriped, bool kTma>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap to, const Pool pool,
+                   const __grid_constant__ CUtensorMap to,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Pool pool,
                    const int* __restrict__ table,
                    const int* __restrict__ pos_map,
                    const int* __restrict__ positions,
@@ -809,8 +642,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     constexpr int kS = Sm::kStages;
     sm90::mbar_init(&sm.q_full, 1);
     for (int s = 0; s < kS; ++s) {
-      sm90::mbar_init(&sm.k_full[s], 128);
-      sm90::mbar_init(&sm.v_full[s], 128);
+      sm90::mbar_init(&sm.k_full[s], kTma ? 1 : 128);
+      sm90::mbar_init(&sm.v_full[s], kTma ? 1 : 128);
       sm90::mbar_init(&sm.k_empty[s], kConsumerWarps);
       sm90::mbar_init(&sm.v_empty[s], kConsumerWarps);
     }
@@ -889,33 +722,48 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   // The two paths never join again (ptxas honours setmaxnreg only then).
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    sm90::setmaxnreg_dec<kProducerRegs>();
+    sm90::setmaxnreg_dec<Regs<kTma>::kProducer>();
     if (threadIdx.x == 0) {
       sm90::mbar_arrive_expect_tx(&sm.q_full, Sm::kHalves * kHalfBytes);
 #pragma unroll
       for (int h = 0; h < Sm::kHalves; ++h)
         sm90::tma_load_3d(sm.q[h], &tq, &sm.q_full, 64 * h, r0, bkh);
     }
-    Producer<D, Pool, kStriped>{sm, pool, tbl_s, pos_s, kh, Hkv, page,
-                                kb, ke, static_cast<int>(threadIdx.x)}
-        .run(n);
+    Producer<D, Pool, kStriped> prod{&tk, &tv, sm, pool, tbl_s, pos_s, kh,
+                                     Hkv, page, kb, ke,
+                                     static_cast<int>(threadIdx.x)};
+    if constexpr (kTma) {
+      if (threadIdx.x < 32) prod.run_tma(n);
+    } else {
+      prod.run(n);
+    }
   } else {
-    sm90::setmaxnreg_inc<kConsumerRegs>();
+    sm90::setmaxnreg_inc<Regs<kTma>::kConsumer>();
     consume<D, kInt8, kStriped>(sm, &to, pos_b, m_out, l_out, bkh, r0, rows,
                                 S, window, scale_log2, n, wg - 1);
   }
 }
 
-template <int D, bool kStriped, class Pool>
+template <int D, bool kStriped, bool kTma, class Pool>
 static int launch(const Pool& pool, const Args& a, cudaStream_t stream) {
   constexpr bool kInt8 = std::is_same<Pool, Int8Pool>::value;
   const int n_rep = a.H / a.Hkv, rows = n_rep * a.S;
-  CUtensorMap tq, to;
+  CUtensorMap tq, to, tk, tv;
   // q and out as [B * Hkv, n_rep * S, D]: the q heads of kv head kh are
   // one contiguous slab, row r = head kh * n_rep + r / S at position r % S
   if (!sm90::make_tmap_bf16_3d(&tq, a.q, a.B * a.Hkv, rows, D, kTile) ||
       !sm90::make_tmap_bf16_3d(&to, a.o, a.B * a.Hkv, rows, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (kTma) {
+    // the pool's leaves as [pages * Hkv, page, D], a box a page; the
+    // page count is not passed, so the map spans 2^30 slabs (the kernel
+    // reads only the table's pages)
+    if (!sm90::make_tmap_bf16_3d(&tk, pool.k, 1 << 30, a.page, D, a.page) ||
+        !sm90::make_tmap_bf16_3d(&tv, pool.v, 1 << 30, a.page, D, a.page))
+      return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    tk = tv = tq;  // unread
+  }
   const size_t smem = smem_bytes<D, kInt8>() +
                       sizeof(int) * (kStriped ? 2 : 1) * a.n_tbl;
   // the most a block may ask for: a table wider than what is left after
@@ -923,17 +771,30 @@ static int launch(const Pool& pool, const Args& a, cudaStream_t stream) {
   constexpr int kMaxSmem = 232448;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_prefill_kernel<D, Pool, kStriped>,
+      paged_prefill_kernel<D, Pool, kStriped, kTma>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int bands = (a.S + kTile - 1) / kTile;
-  paged_prefill_kernel<D, Pool, kStriped><<<bands * n_rep * a.B * a.Hkv, kBlockThreads, smem, stream>>>(
-      tq, to, pool, static_cast<const int*>(a.table),
+  paged_prefill_kernel<D, Pool, kStriped, kTma>
+      <<<bands * n_rep * a.B * a.Hkv, kBlockThreads, smem, stream>>>(
+          tq, to, tk, tv, pool, static_cast<const int*>(a.table),
       static_cast<const int*>(a.pos_map),
       static_cast<const int*>(a.positions), static_cast<float*>(a.m),
       static_cast<float*>(a.l), a.B, a.H, a.Hkv, a.S, a.page, a.n_tbl,
       a.window, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kStriped, class Pool>
+static int launch_route(const Pool& pool, const Args& a, cudaStream_t st) {
+  // route (b), TMA a page, where a page is whole 8-row swizzle atoms and
+  // a tile whole pages: the bf16 pool at pages of 8, 16, 32, 64 or 128;
+  // route (a), cp.async, for every other page and the int8 store
+  if constexpr (std::is_same<Pool, Bf16Pool>::value) {
+    if (kUseTma && a.page % 8 == 0 && kTile % a.page == 0)
+      return prefill::launch<D, kStriped, true>(pool, a, st);
+  }
+  return prefill::launch<D, kStriped, false>(pool, a, st);
 }
 
 template <bool kStriped, class Pool>
@@ -944,9 +805,9 @@ static int dispatch(const Pool& pool, const Args& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a.D) {
     case 64:
-      return prefill::launch<64, kStriped>(pool, a, st);
+      return prefill::launch_route<64, kStriped>(pool, a, st);
     case 128:
-      return prefill::launch<128, kStriped>(pool, a, st);
+      return prefill::launch_route<128, kStriped>(pool, a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -957,7 +818,10 @@ static int dispatch(const Pool& pool, const Args& a, void* stream) {
 }  // namespace tpushare
 
 // Each entry point returns cudaGetLastError() after the launch (0 =
-// launched).
+// launched), or cudaErrorInvalidValue for what it does not take: a head
+// dim other than 64 or 128, or a table whose staged entries do not fit
+// beside the stages in shared memory (about 15K entries for the bf16
+// pool at D = 128, 6K for the int8 store; half that striped).
 extern "C" int tpushare_paged_attn(const void* q, const void* kpool,
                                    const void* vpool, const void* table,
                                    const void* positions, void* o, int B,
@@ -966,12 +830,7 @@ extern "C" int tpushare_paged_attn(const void* q, const void* kpool,
                                    void* stream) {
   const tpushare::Bf16Pool pool{static_cast<const tpushare::bf16*>(kpool),
                                 static_cast<const tpushare::bf16*>(vpool)};
-  if (tpushare::kHopperBf16)
-    return tpushare::prefill::dispatch<false>(
-        pool, {q, table, nullptr, positions, o, nullptr, nullptr, B, H, Hkv,
-               S, D, page, n_tbl, window, scale},
-        stream);
-  return tpushare::dispatch<false>(
+  return tpushare::prefill::dispatch<false>(
       pool, {q, table, nullptr, positions, o, nullptr, nullptr, B, H, Hkv,
              S, D, page, n_tbl, window, scale},
       stream);
@@ -985,13 +844,7 @@ extern "C" int tpushare_paged_attn_int8(
     int H, int Hkv, int S, int D, int page, int n_tbl, int window,
     float scale, void* stream) {
   if (page % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (tpushare::kHopperInt8)
-    return tpushare::prefill::dispatch<false>(
-        tpushare::int8_pool(kq, ks, vq, vs),
-        {q, table, nullptr, positions, o, nullptr, nullptr, B, H, Hkv, S, D,
-         page, n_tbl, window, scale},
-        stream);
-  return tpushare::dispatch<false>(
+  return tpushare::prefill::dispatch<false>(
       tpushare::int8_pool(kq, ks, vq, vs),
       {q, table, nullptr, positions, o, nullptr, nullptr, B, H, Hkv, S, D,
        page, n_tbl, window, scale},
@@ -1008,12 +861,7 @@ extern "C" int tpushare_paged_attn_striped(
     float scale, void* stream) {
   const tpushare::Bf16Pool pool{static_cast<const tpushare::bf16*>(kpool),
                                 static_cast<const tpushare::bf16*>(vpool)};
-  if (tpushare::kHopperStriped)
-    return tpushare::prefill::dispatch<true>(
-        pool, {q, table, pos_map, positions, o, m, l, B, H, Hkv, S, D, page,
-               n_tbl, window, scale},
-        stream);
-  return tpushare::dispatch<true>(
+  return tpushare::prefill::dispatch<true>(
       pool, {q, table, pos_map, positions, o, m, l, B, H, Hkv, S, D, page,
              n_tbl, window, scale},
       stream);
@@ -1026,13 +874,7 @@ extern "C" int tpushare_paged_attn_int8_striped(
     int S, int D, int page, int n_tbl, int window, float scale,
     void* stream) {
   if (page % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (tpushare::kHopperInt8 && tpushare::kHopperStriped)
-    return tpushare::prefill::dispatch<true>(
-        tpushare::int8_pool(kq, ks, vq, vs),
-        {q, table, pos_map, positions, o, m, l, B, H, Hkv, S, D, page, n_tbl,
-         window, scale},
-        stream);
-  return tpushare::dispatch<true>(
+  return tpushare::prefill::dispatch<true>(
       tpushare::int8_pool(kq, ks, vq, vs),
       {q, table, pos_map, positions, o, m, l, B, H, Hkv, S, D, page, n_tbl,
        window, scale},

@@ -75,9 +75,9 @@ struct Int8Tile {
 };
 
 // The int8 store's loader for the decode arm: cp.async copies of a tile's
-// int8 rows and scales into a stage (paged_pool.cuh's copy_int8_tile, as
-// Int8Loader's), and the fold reads the stage itself: no bf16 tile, no
-// barrier of its own.
+// int8 rows and scales into a stage (paged_pool.cuh's copy_int8_tile),
+// and the fold reads the stage itself: no bf16 tile, no barrier of its
+// own.
 template <int D, class Slot>
 struct Int8RegLoader {
   Int8Tile<D>* ring;
@@ -185,9 +185,9 @@ __device__ __forceinline__ void v_frags(uint32_t b[4], const Int8Tile<D>& st,
 }
 
 // Fold keys kb .. kb + 15 of a staged tile (walk keys k0 ..) into one
-// warp's rows: fold_tile of attn_tile.cuh on a 16-key subtile, with the
-// same numerics (f32 scores in base 2, p times the keep mask, P rounded
-// to bf16 before PV).  keep(key) is the mask of every row of the block
+// warp's rows: an online-softmax fold of a 16-key subtile on mma.sync,
+// with K2's numerics (f32 scores in base 2, p times the keep mask, P
+// rounded to bf16 before PV).  keep(key) is the mask of every row of the block
 // (they share one position); with kMasked false it is not called.
 template <int D, bool kMasked, class Tile, class Keep>
 __device__ __forceinline__ void fold_sub(WarpRows<D>& w, const Tile& sm,

@@ -1,13 +1,11 @@
-// The paged pool's stores and their loaders, shared by K2's two arms:
-// paged_attn.cu (any S; the prefill windows) and paged_decode.cu (S = 1,
-// split over the page table).  A loader is what attn_tile.cuh's
-// walk_tiles asks of a store (copy a 64-key tile into a ring stage; hand
-// the fold a bf16 tile).  The bf16 pool copies straight into the tile;
-// the int8 store {"q": int8 [n_pages, Hkv, page, D], "s": f32 [n_pages,
-// Hkv, page, 1]} copies raw int8 rows and their scales (16-byte cp.async
-// chunks: four scales a chunk, so page % 4 == 0 and tiles start at
-// multiples of 4 keys) and dequantizes each element as bf16(f32(q) * s),
-// the TPU body's rounding, into one bf16 tile.
+// The paged pool's stores, shared by K2's two arms: paged_attn.cu (S > 1)
+// and paged_decode.cu (S = 1, split over the page table).  The bf16 pool
+// hands the decode arm attn_tile.cuh's loader (a 64-key tile copied
+// straight into a ring stage); the int8 store {"q": int8 [n_pages, Hkv,
+// page, D], "s": f32 [n_pages, Hkv, page, 1]} is copied as raw int8 rows
+// and their scales (16-byte cp.async chunks: four scales a chunk, so page
+// % 4 == 0 and tiles start at multiples of 4 keys) and dequantized, each
+// element bf16(f32(q) * s) as the TPU body rounds it (dequant8).
 #pragma once
 
 #include <climits>
@@ -20,11 +18,6 @@ namespace tpushare {
 struct Bf16Pool {
   const bf16* k;
   const bf16* v;
-
-  template <int D>
-  __host__ __device__ static constexpr size_t smem_bytes() {
-    return ring_bytes<D>();
-  }
 
   // slot(key): the row index of a key in [n_pages * Hkv * page]
   template <int D, class Slot>
@@ -40,16 +33,6 @@ struct Bf16Pool {
     return Bf16Loader<D, decltype(row_of)>{
         reinterpret_cast<KvStage<D>*>(smem), row_of};
   }
-};
-
-// One ring stage of the int8 store: a tile's raw K and V rows and their
-// per-key scales.
-template <int D>
-struct Int8Stage {
-  int8_t k[kKeys][D];
-  int8_t v[kKeys][D];
-  float ks[kKeys];
-  float vs[kKeys];
 };
 
 // eight int8 values times their key's scale -> eight bf16 (16 bytes)
@@ -71,9 +54,8 @@ __device__ __forceinline__ void dequant8(bf16* dst, const int8_t* src,
 
 // cp.async copies of the int8 store's keys [key0, min(key0 + kKeys,
 // key_end)) into a ring stage: any Stage with rows k[kKeys][>= D] and
-// v[kKeys][>= D] and scales ks[kKeys] and vs[kKeys] (Int8Stage here,
-// paged_decode.cu's padded rows), 16-byte chunks of each row and four
-// scales a chunk.
+// v[kKeys][>= D] and scales ks[kKeys] and vs[kKeys] (paged_decode.cu's
+// padded rows), 16-byte chunks of each row and four scales a chunk.
 template <int D, class Stage, class Slot>
 __device__ __forceinline__ void copy_int8_tile(
     Stage& st, const Slot& slot, const int8_t* kq, const float* ks,
@@ -99,56 +81,12 @@ __device__ __forceinline__ void copy_int8_tile(
   }
 }
 
-template <int D, class Slot>
-struct Int8Loader {
-  Int8Stage<D>* ring;
-  KvStage<D>* deq;  // the bf16 tile the fold reads
-  Slot slot;
-  const int8_t* kq;
-  const float* ks;
-  const int8_t* vq;
-  const float* vs;
-
-  __device__ __forceinline__ void copy(int stage, int key0,
-                                       int key_end) const {
-    copy_int8_tile<D>(ring[stage], slot, kq, ks, vq, vs, key0, key_end);
-  }
-
-  __device__ __forceinline__ const KvStage<D>& tile(int stage) const {
-    const Int8Stage<D>& st = ring[stage];
-    constexpr int kGroups = D / 8;  // eight values a thread at a time
-#pragma unroll
-    for (int i = threadIdx.x; i < kKeys * kGroups; i += kThreads) {
-      const int r = i / kGroups;
-      const int c = (i % kGroups) * 8;
-      dequant8(&deq->k[r][c], &st.k[r][c], st.ks[r]);
-      dequant8(&deq->v[r][c], &st.v[r][c], st.vs[r]);
-    }
-    __syncthreads();
-    return *deq;
-  }
-};
-
 // one layer's int8 store: values and per-(key, kv head) scales
 struct Int8Pool {
   const int8_t* kq;
   const float* ks;
   const int8_t* vq;
   const float* vs;
-
-  template <int D>
-  __host__ __device__ static constexpr size_t smem_bytes() {
-    return 2 * sizeof(Int8Stage<D>) + sizeof(KvStage<D>);
-  }
-
-  template <int D, class Slot>
-  __device__ __forceinline__ Int8Loader<D, Slot> loader(unsigned char* smem,
-                                                        Slot slot) const {
-    return Int8Loader<D, Slot>{
-        reinterpret_cast<Int8Stage<D>*>(smem),
-        reinterpret_cast<KvStage<D>*>(smem + 2 * sizeof(Int8Stage<D>)),
-        slot, kq, ks, vq, vs};
-  }
 };
 
 inline Int8Pool int8_pool(const void* kq, const void* ks, const void* vq,
