@@ -89,22 +89,16 @@ constexpr int kTile = 128;                  // rows a block, keys a tile
 constexpr int kHalfBytes = kTile * 64 * 2;  // one 64-column bf16 half
 constexpr int kBlockThreads = 3 * 128;      // producer + two consumers
 constexpr int kConsumerWarps = 8;
-// route (b) on for the pages it takes (off: every page by cp.async)
-constexpr bool kUseTma = false;
 constexpr int kProducerBar = 3;  // named barrier of the producer warpgroup
-// setmaxnreg, by route: the TMA producer (one warp) keeps K1's 24
-// registers; the cp.async producer's copies and int8 dequantization need
-// more (at 40 it spilled).  The launch gives each of the 384 threads 168
-// registers, and the consumers' setmaxnreg.inc takes only what the
-// producer's .dec gave back (asked for more, it waits for ever):
-// 128 * (168 - P) >= 256 * (C - 168).
-template <bool kTma>
-struct Regs {
-  static constexpr int kProducer = kTma ? 24 : 56;
-  static constexpr int kConsumer = kTma ? 240 : 224;
-  static_assert(kProducer + 2 * kConsumer <= 3 * 168,
-                "the consumers' setmaxnreg.inc would wait for ever");
-};
+// setmaxnreg: the producer's copies and int8 dequantization need more
+// than the 24 registers a TMA-only producer keeps (at 40 it spilled).
+// The launch gives each of the 384 threads 168 registers, and the
+// consumers' setmaxnreg.inc takes only what the producer's .dec gave back
+// (asked for more, it waits for ever): 128 * (168 - P) >= 256 * (C - 168)
+constexpr int kProducerRegs = 56;
+constexpr int kConsumerRegs = 224;
+static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
+              "the consumers' setmaxnreg.inc would wait for ever");
 // the producer's rows of a tile in flight, tile i in slot i % 3 (see
 // Producer::issue)
 constexpr int kSlotRing = 3;
@@ -161,9 +155,6 @@ __device__ __forceinline__ unsigned char* swz(unsigned char* tile, int r,
 // What the producer warpgroup knows of a block's walk.
 template <int D, class Pool, bool kStriped>
 struct Producer {
-  // route (b) only: the pool's K and V leaves as [pages * Hkv, page, D]
-  const CUtensorMap* tk;
-  const CUtensorMap* tv;
   using Sm = Smem<D, std::is_same<Pool, Int8Pool>::value>;
   static constexpr bool kInt8 = std::is_same<Pool, Int8Pool>::value;
   static constexpr int kS = Sm::kStages;
@@ -261,50 +252,6 @@ struct Producer {
     }
     sm90::fence_proxy_async();
     sm90::mbar_arrive(full(is_v, s));
-  }
-
-  // Route (b), the bf16 pool at a page that divides the 128-key tile and
-  // fills whole 8-row swizzle atoms: K of tile i, then V of tile i - 1,
-  // each one TMA box (page rows x 64 columns) a page and half, issued by
-  // one lane of warp 0 against the stage's full barrier (1 arrival plus
-  // the bytes).  A tile's last pages past ke repeat the walk's last page:
-  // masked keys, never read as a NaN.  Striped, the warp first writes
-  // the K tile's key positions.
-  __device__ __forceinline__ void run_tma(int n) {
-    const int lane = tid & 31;
-    const int per = kTile / page;
-    auto load = [&](bool is_v, int i) {
-      const int s = i % kS;
-      sm90::mbar_wait(empty(is_v, s), ((i / kS) & 1) ^ 1);
-      if constexpr (kStriped) {
-        if (!is_v) {
-          int* tp = sm.tile_pos[i % Sm::kPosSlots];
-          for (int r = lane; r < kTile; r += 32) {
-            const int key = kb + i * kTile + r;
-            tp[r] = key < ke ? pos_s[key / page] + key % page : INT_MAX;
-          }
-          __syncwarp();
-        }
-      }
-      if (lane == 0) {
-        uint64_t* bar = full(is_v, s);
-        sm90::mbar_arrive_expect_tx(bar, Sm::kHalves * kHalfBytes);
-        const CUtensorMap* map = is_v ? tv : tk;
-        unsigned char* dst = stage(is_v, s);
-        const int j0 = kb / page + i * per, j_last = (ke - 1) / page;
-        for (int p = 0; p < per; ++p) {
-          const int slab = tbl_s[min(j0 + p, j_last)] * Hkv + kh;
-#pragma unroll
-          for (int h = 0; h < Sm::kHalves; ++h)
-            sm90::tma_load_3d(dst + h * kHalfBytes + p * page * 128, map,
-                              bar, 64 * h, 0, slab);
-        }
-      }
-    };
-    for (int i = 0; i <= n; ++i) {
-      if (i < n) load(false, i);
-      if (i > 0) load(true, i - 1);
-    }
   }
 
   // K of tile i, then V of tile i - 1; each load's copies are in flight
@@ -600,19 +547,17 @@ __device__ __forceinline__ void consume(Smem<D, kInt8>& sm,
   if (tid == 0) sm90::tma_store_wait_read();
 }
 
-// kTma: route (b) (Producer::run_tma), else route (a) (Producer::run)
-template <int D, class Pool, bool kStriped, bool kTma>
+template <int D, class Pool, bool kStriped>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
-                   const __grid_constant__ CUtensorMap to,
-                   const __grid_constant__ CUtensorMap tk,
-                   const __grid_constant__ CUtensorMap tv, const Pool pool,
-                   const int* __restrict__ table,
-                   const int* __restrict__ pos_map,
-                   const int* __restrict__ positions,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   int B, int H, int Hkv, int S, int page, int n_tbl,
-                   int window, float scale_log2) {
+                         const __grid_constant__ CUtensorMap to,
+                         const Pool pool, const int* __restrict__ table,
+                         const int* __restrict__ pos_map,
+                         const int* __restrict__ positions,
+                         float* __restrict__ m_out,
+                         float* __restrict__ l_out, int B, int H, int Hkv,
+                         int S, int page, int n_tbl, int window,
+                         float scale_log2) {
   constexpr bool kInt8 = std::is_same<Pool, Int8Pool>::value;
   using Sm = Smem<D, kInt8>;
   extern __shared__ unsigned char smem_raw[];
@@ -642,8 +587,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     constexpr int kS = Sm::kStages;
     sm90::mbar_init(&sm.q_full, 1);
     for (int s = 0; s < kS; ++s) {
-      sm90::mbar_init(&sm.k_full[s], kTma ? 1 : 128);
-      sm90::mbar_init(&sm.v_full[s], kTma ? 1 : 128);
+      sm90::mbar_init(&sm.k_full[s], 128);
+      sm90::mbar_init(&sm.v_full[s], 128);
       sm90::mbar_init(&sm.k_empty[s], kConsumerWarps);
       sm90::mbar_init(&sm.v_empty[s], kConsumerWarps);
     }
@@ -722,48 +667,33 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   // The two paths never join again (ptxas honours setmaxnreg only then).
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    sm90::setmaxnreg_dec<Regs<kTma>::kProducer>();
+    sm90::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
       sm90::mbar_arrive_expect_tx(&sm.q_full, Sm::kHalves * kHalfBytes);
 #pragma unroll
       for (int h = 0; h < Sm::kHalves; ++h)
         sm90::tma_load_3d(sm.q[h], &tq, &sm.q_full, 64 * h, r0, bkh);
     }
-    Producer<D, Pool, kStriped> prod{&tk, &tv, sm, pool, tbl_s, pos_s, kh,
-                                     Hkv, page, kb, ke,
-                                     static_cast<int>(threadIdx.x)};
-    if constexpr (kTma) {
-      if (threadIdx.x < 32) prod.run_tma(n);
-    } else {
-      prod.run(n);
-    }
+    Producer<D, Pool, kStriped>{sm, pool, tbl_s, pos_s, kh, Hkv, page,
+                                kb, ke, static_cast<int>(threadIdx.x)}
+        .run(n);
   } else {
-    sm90::setmaxnreg_inc<Regs<kTma>::kConsumer>();
+    sm90::setmaxnreg_inc<kConsumerRegs>();
     consume<D, kInt8, kStriped>(sm, &to, pos_b, m_out, l_out, bkh, r0, rows,
                                 S, window, scale_log2, n, wg - 1);
   }
 }
 
-template <int D, bool kStriped, bool kTma, class Pool>
+template <int D, bool kStriped, class Pool>
 static int launch(const Pool& pool, const Args& a, cudaStream_t stream) {
   constexpr bool kInt8 = std::is_same<Pool, Int8Pool>::value;
   const int n_rep = a.H / a.Hkv, rows = n_rep * a.S;
-  CUtensorMap tq, to, tk, tv;
+  CUtensorMap tq, to;
   // q and out as [B * Hkv, n_rep * S, D]: the q heads of kv head kh are
   // one contiguous slab, row r = head kh * n_rep + r / S at position r % S
   if (!sm90::make_tmap_bf16_3d(&tq, a.q, a.B * a.Hkv, rows, D, kTile) ||
       !sm90::make_tmap_bf16_3d(&to, a.o, a.B * a.Hkv, rows, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kTma) {
-    // the pool's leaves as [pages * Hkv, page, D], a box a page; the
-    // page count is not passed, so the map spans 2^30 slabs (the kernel
-    // reads only the table's pages)
-    if (!sm90::make_tmap_bf16_3d(&tk, pool.k, 1 << 30, a.page, D, a.page) ||
-        !sm90::make_tmap_bf16_3d(&tv, pool.v, 1 << 30, a.page, D, a.page))
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    tk = tv = tq;  // unread
-  }
   const size_t smem = smem_bytes<D, kInt8>() +
                       sizeof(int) * (kStriped ? 2 : 1) * a.n_tbl;
   // the most a block may ask for: a table wider than what is left after
@@ -771,30 +701,18 @@ static int launch(const Pool& pool, const Args& a, cudaStream_t stream) {
   constexpr int kMaxSmem = 232448;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_prefill_kernel<D, Pool, kStriped, kTma>,
+      paged_prefill_kernel<D, Pool, kStriped>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int bands = (a.S + kTile - 1) / kTile;
-  paged_prefill_kernel<D, Pool, kStriped, kTma>
+  paged_prefill_kernel<D, Pool, kStriped>
       <<<bands * n_rep * a.B * a.Hkv, kBlockThreads, smem, stream>>>(
-          tq, to, tk, tv, pool, static_cast<const int*>(a.table),
-      static_cast<const int*>(a.pos_map),
-      static_cast<const int*>(a.positions), static_cast<float*>(a.m),
-      static_cast<float*>(a.l), a.B, a.H, a.Hkv, a.S, a.page, a.n_tbl,
-      a.window, a.scale * kLog2e);
+          tq, to, pool, static_cast<const int*>(a.table),
+          static_cast<const int*>(a.pos_map),
+          static_cast<const int*>(a.positions), static_cast<float*>(a.m),
+          static_cast<float*>(a.l), a.B, a.H, a.Hkv, a.S, a.page, a.n_tbl,
+          a.window, a.scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, bool kStriped, class Pool>
-static int launch_route(const Pool& pool, const Args& a, cudaStream_t st) {
-  // route (b), TMA a page, where a page is whole 8-row swizzle atoms and
-  // a tile whole pages: the bf16 pool at pages of 8, 16, 32, 64 or 128;
-  // route (a), cp.async, for every other page and the int8 store
-  if constexpr (std::is_same<Pool, Bf16Pool>::value) {
-    if (kUseTma && a.page % 8 == 0 && kTile % a.page == 0)
-      return prefill::launch<D, kStriped, true>(pool, a, st);
-  }
-  return prefill::launch<D, kStriped, false>(pool, a, st);
 }
 
 template <bool kStriped, class Pool>
@@ -805,9 +723,9 @@ static int dispatch(const Pool& pool, const Args& a, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (a.D) {
     case 64:
-      return prefill::launch_route<64, kStriped>(pool, a, st);
+      return prefill::launch<64, kStriped>(pool, a, st);
     case 128:
-      return prefill::launch_route<128, kStriped>(pool, a, st);
+      return prefill::launch<128, kStriped>(pool, a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

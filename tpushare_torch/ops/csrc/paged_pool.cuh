@@ -35,20 +35,28 @@ struct Bf16Pool {
   }
 };
 
-// eight int8 values times their key's scale -> eight bf16 (16 bytes)
+// eight int8 values times their key's scale -> eight bf16 (16 bytes).
+// Each byte becomes a float without the (quarter-rate) integer
+// conversion: its sign bit flipped, placed under the exponent of 2^23,
+// it reads 2^23 + 128 + q, and one exact subtraction leaves f32(q).
+__device__ __forceinline__ float s8_lane(uint32_t biased, int i) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 | i)) -
+         8388736.f;
+}
+
 __device__ __forceinline__ void dequant8(bf16* dst, const int8_t* src,
                                          float s) {
-  const int2 raw = *reinterpret_cast<const int2*>(src);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const uint32_t lo = raw.x ^ 0x80808080u, hi = raw.y ^ 0x80808080u;
   uint4 out;
-  out.x = pack_bf16x2(__fmul_rn(static_cast<float>(b[0]), s),
-                      __fmul_rn(static_cast<float>(b[1]), s));
-  out.y = pack_bf16x2(__fmul_rn(static_cast<float>(b[2]), s),
-                      __fmul_rn(static_cast<float>(b[3]), s));
-  out.z = pack_bf16x2(__fmul_rn(static_cast<float>(b[4]), s),
-                      __fmul_rn(static_cast<float>(b[5]), s));
-  out.w = pack_bf16x2(__fmul_rn(static_cast<float>(b[6]), s),
-                      __fmul_rn(static_cast<float>(b[7]), s));
+  out.x = pack_bf16x2(__fmul_rn(s8_lane(lo, 0), s),
+                      __fmul_rn(s8_lane(lo, 1), s));
+  out.y = pack_bf16x2(__fmul_rn(s8_lane(lo, 2), s),
+                      __fmul_rn(s8_lane(lo, 3), s));
+  out.z = pack_bf16x2(__fmul_rn(s8_lane(hi, 0), s),
+                      __fmul_rn(s8_lane(hi, 1), s));
+  out.w = pack_bf16x2(__fmul_rn(s8_lane(hi, 2), s),
+                      __fmul_rn(s8_lane(hi, 3), s));
   *reinterpret_cast<uint4*>(dst) = out;
 }
 
