@@ -135,6 +135,11 @@ SEED = 0
 DECODE_STAGE = ("1-3: split-KV over the page table with the combine in the "
                 "kernel's tail; every warp on the keys, over non-empty "
                 "splits only; int8 dequantized in registers")
+#: the stages of K2's prefill-arm redesign that csrc/paged_attn.cu holds
+PREFILL_STAGE = ("1-4: 128 packed GQA rows a block, a producer warpgroup "
+                 "copying 128-key tiles through the page table by cp.async "
+                 "into swizzled stages, two consumer warpgroups on wgmma; "
+                 "the int8 store dequantized by the producer; striped")
 
 
 class PhaseFailed(Exception):
@@ -1280,7 +1285,7 @@ def main() -> int:
     # paged store
     k2_rows = []
     for arm, source, shape, stage in (
-            ("attn", "paged_attn.cu", "prefill", None),
+            ("attn", "paged_attn.cu", "prefill", PREFILL_STAGE),
             ("decode", "paged_decode.cu", "decode", DECODE_STAGE)):
         for kind, key, line, phase in (
                 ("", "", 613, srv), ("_int8", "int8_", 664, grant),
@@ -1289,7 +1294,8 @@ def main() -> int:
             case = k2[key + shape]
             counter = f"paged_{arm}{kind}"
             if "striped" in kind:
-                counter = f"launches{'_decode' if stage else ''}{kind}"
+                counter = (f"launches{'_decode' if arm == 'decode' else ''}"
+                           f"{kind}")
             row = {"name": f"paged_{arm}{kind}", "route": "cuda",
                    "source": f"tpushare_torch/ops/csrc/{source}",
                    "replaces": f"tpushare/ops/attention.py:{line}",
@@ -1299,9 +1305,9 @@ def main() -> int:
                    "bound_ms": case["bound_ms"],
                    "bound_by": case["bound_by"], "library_ms": None,
                    "device_ms": case["device_ms"], "shape": shape,
-                   "device_kernels": case["kernels"]}
-            if stage:
-                row.update({"stage": stage, "n_splits": case["n_splits"]})
+                   "device_kernels": case["kernels"], "stage": stage}
+            if arm == "decode":
+                row["n_splits"] = case["n_splits"]
             k2_rows.append(row)
     bwd_kernels = []
     for name, kern, line, outs in (("flash_bwd_dkv", "dkv", 180, "dk dv"),
