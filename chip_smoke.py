@@ -399,27 +399,31 @@ def _time_k2(torch, attn, case, args, kw, iters, plain_iters, flush):
     case["gbps"] = case["bytes"] / case["ms"] / 1e6
 
 
-def _k2_decode_edges(torch, attn):
-    """Every K2 entry point at S = 1 (the decode arm) against the plain
-    version at ``profile_k2.DECODE_EDGES``, on a pool of 600 pages of 16
-    with 2 kv heads, striped as the batcher stripes it, and tables of 160
-    entries: out within OUT_TOL; striped, each stripe's m within LSE_TOL
-    and l within LSE_TOL relative, and a row that keeps no key of a
-    stripe out 0, m NEG_INF and l 0 exactly."""
+def _k2_edges(torch, attn, cases, arm: str, seed: int):
+    """Every K2 entry point of one arm against the plain version at
+    ``cases`` ((contexts, S, window, n_rep, d, page, n_tbl), q at each
+    row's last S positions; the int8 entry points where the page is a
+    multiple of 4), on a pool of 600 pages with 2 kv heads, striped as
+    the batcher stripes it: out within OUT_TOL; striped, each stripe's m
+    within LSE_TOL and l within LSE_TOL relative, and a row that keeps no
+    key of a stripe out 0, m NEG_INF and l 0 exactly; every call one
+    launch of its entry point of ``arm`` (``"_decode"`` or ``""``, the
+    prefill arm)."""
     from tpushare_torch import profile_k2
 
     worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
     empty_rows = calls = 0
     k2 = attn.paged_decode_attention
-    for i, (contexts, window, n_rep, d) in enumerate(
-            profile_k2.DECODE_EDGES):
-        for int8 in (False, True):
+    for i, (contexts, s, window, n_rep, d, page, n_tbl) in enumerate(cases):
+        for int8 in (False, True) if page % 4 == 0 else (False,):
             q, kp, vp, table, pos, stripes, per, _ = \
                 profile_k2.striped_operands(
-                    contexts, 1, SEED + 300 + i, int8=int8, n_pages=600,
-                    hkv=2, h=2 * n_rep, d=d, n_tbl=160)
-            kind = "int8" if int8 else "bf16"
-            counter = "launches_decode_int8" if int8 else "launches_decode"
+                    contexts, s, seed + i, int8=int8, n_pages=600, hkv=2,
+                    h=2 * n_rep, d=d, page=page, n_tbl=n_tbl)
+            kind = "_int8" if int8 else ""
+            what = (f"K2{kind} edge {contexts} S={s} {window=} {n_rep=} "
+                    f"{d=} {page=}")
+            counter = f"launches{arm}{kind}"
             before = getattr(k2, counter)
             out = k2(q, kp, vp, table, pos, window=window)
             ref = attn._paged_plain(q, kp, vp, table, pos, window)
@@ -427,80 +431,13 @@ def _k2_decode_edges(torch, attn):
             calls += 1
             err = (out.float() - ref.float()).abs().max().item()
             check(getattr(k2, counter) == before + 1,
-                  f"K2 {kind} decode edge {i} did not run the decode arm")
+                  f"{what} did not run its arm")
             check(torch.isfinite(out.float()).all().item() and
-                  err <= OUT_TOL,
-                  f"K2 {kind} decode edge {contexts} {window=} {n_rep=} "
-                  f"{d=}: out err {err}")
-            worst["out"] = max(worst["out"], err)
-            for t, (sk, sv) in enumerate(stripes):
-                tbl, pmap = attn.striped_local_view(table, 2, t, per, 16)
-                o, m, l = k2(q, sk, sv, tbl, pos, window=window,
-                             pos_map=pmap, return_stats=True)
-                po, pm, pl = attn._paged_plain(q, sk, sv, tbl, pos, window,
-                                               pos_map=pmap,
-                                               return_stats=True)
-                torch.cuda.synchronize()
-                calls += 1
-                e = {"out": (o.float() - po.float()).abs().max().item(),
-                     "m": (m - pm).abs().max().item(),
-                     "l_rel": ((l - pl).abs() / pl.clamp_min(1e-30))
-                     .max().item()}
-                none = pl == 0
-                check(e["out"] <= OUT_TOL and e["m"] <= LSE_TOL
-                      and e["l_rel"] <= LSE_TOL
-                      and bool((l[none] == 0).all())
-                      and bool((m[none] == attn.NEG_INF).all())
-                      and bool((o[none] == 0).all()),
-                      f"striped K2 {kind} decode edge {contexts} {window=} "
-                      f"{n_rep=} {d=} stripe {t}: {e}")
-                empty_rows += int(none.sum())
-                worst = {k: max(v, e[k]) for k, v in worst.items()}
-            torch.cuda.empty_cache()
-    check(empty_rows > 0, "no decode edge left a stripe row without keys")
-    return {"cases": len(profile_k2.DECODE_EDGES), "calls": calls,
-            "max_err": worst, "stripe_rows_without_keys": empty_rows}
-
-
-def _k2_prefill_edges(torch, attn):
-    """Every K2 entry point at S > 1 (the prefill arm) against the plain
-    version at ``profile_k2.PREFILL_EDGES`` (the int8 ones where the page
-    is a multiple of 4), on a pool of 600 pages with 2 kv heads, striped
-    as the batcher stripes it, each table 8 entries wider than its
-    longest row: out within OUT_TOL; striped, each stripe's m within
-    LSE_TOL and l within LSE_TOL relative, and a row that keeps no key of
-    a stripe out 0, m NEG_INF and l 0 exactly; every call one launch of
-    its prefill entry point."""
-    from tpushare_torch import profile_k2
-
-    worst = {"out": 0.0, "m": 0.0, "l_rel": 0.0}
-    empty_rows = calls = 0
-    k2 = attn.paged_decode_attention
-    for i, (contexts, s, window, n_rep, d, page) in enumerate(
-            profile_k2.PREFILL_EDGES):
-        n_tbl = max(-(-c // page) for c in contexts) + 8
-        for int8 in (False, True) if page % 4 == 0 else (False,):
-            q, kp, vp, table, pos, stripes, per, _ = \
-                profile_k2.striped_operands(
-                    contexts, s, SEED + 400 + i, int8=int8, n_pages=600,
-                    hkv=2, h=2 * n_rep, d=d, page=page, n_tbl=n_tbl)
-            kind = "_int8" if int8 else ""
-            before = getattr(k2, f"launches{kind}")
-            out = k2(q, kp, vp, table, pos, window=window)
-            ref = attn._paged_plain(q, kp, vp, table, pos, window)
-            torch.cuda.synchronize()
-            calls += 1
-            err = (out.float() - ref.float()).abs().max().item()
-            check(getattr(k2, f"launches{kind}") == before + 1,
-                  f"K2{kind} prefill edge {i} did not run the prefill arm")
-            check(torch.isfinite(out.float()).all().item() and
-                  err <= OUT_TOL,
-                  f"K2{kind} prefill edge {contexts} S={s} {window=} "
-                  f"{n_rep=} {d=} {page=}: out err {err}")
+                  err <= OUT_TOL, f"{what}: out err {err}")
             worst["out"] = max(worst["out"], err)
             for t, (sk, sv) in enumerate(stripes):
                 tbl, pmap = attn.striped_local_view(table, 2, t, per, page)
-                before = getattr(k2, f"launches{kind}_striped")
+                before = getattr(k2, counter + "_striped")
                 o, m, l = k2(q, sk, sv, tbl, pos, window=window,
                              pos_map=pmap, return_stats=True)
                 po, pm, pl = attn._paged_plain(q, sk, sv, tbl, pos, window,
@@ -513,19 +450,45 @@ def _k2_prefill_edges(torch, attn):
                      "l_rel": ((l - pl).abs() / pl.clamp_min(1e-30))
                      .max().item()}
                 none = pl == 0
-                check(getattr(k2, f"launches{kind}_striped") == before + 1
+                check(getattr(k2, counter + "_striped") == before + 1
                       and e["out"] <= OUT_TOL and e["m"] <= LSE_TOL
                       and e["l_rel"] <= LSE_TOL
                       and bool((l[none] == 0).all())
                       and bool((m[none] == attn.NEG_INF).all())
                       and bool((o[none] == 0).all()),
-                      f"striped K2{kind} prefill edge {contexts} S={s} "
-                      f"{window=} {n_rep=} {d=} {page=} stripe {t}: {e}")
+                      f"striped {what} stripe {t}: {e}")
                 empty_rows += int(none.sum())
                 worst = {k: max(v, e[k]) for k, v in worst.items()}
             torch.cuda.empty_cache()
-    return {"cases": len(profile_k2.PREFILL_EDGES), "calls": calls,
-            "max_err": worst, "stripe_rows_without_keys": empty_rows}
+    return {"cases": len(cases), "calls": calls, "max_err": worst,
+            "stripe_rows_without_keys": empty_rows}
+
+
+def _k2_decode_edges(torch, attn):
+    """The decode arm (S = 1) at ``profile_k2.DECODE_EDGES``, pages of 16
+    and tables of 160 entries (``_k2_edges``); some stripe row keeps no
+    key."""
+    from tpushare_torch import profile_k2
+
+    res = _k2_edges(torch, attn, [
+        (contexts, 1, window, n_rep, d, 16, 160)
+        for contexts, window, n_rep, d in profile_k2.DECODE_EDGES],
+        "_decode", SEED + 300)
+    check(res["stripe_rows_without_keys"] > 0,
+          "no decode edge left a stripe row without keys")
+    return res
+
+
+def _k2_prefill_edges(torch, attn):
+    """The prefill arm (S > 1) at ``profile_k2.PREFILL_EDGES``, each table
+    8 entries wider than its longest row (``_k2_edges``)."""
+    from tpushare_torch import profile_k2
+
+    return _k2_edges(torch, attn, [
+        (contexts, s, window, n_rep, d, page,
+         max(-(-c // page) for c in contexts) + 8)
+        for contexts, s, window, n_rep, d, page in profile_k2.PREFILL_EDGES],
+        "", SEED + 400)
 
 
 def phase_k2(torch, flush):

@@ -299,40 +299,39 @@ def test_paged_striped_kernels_match_plain(cuda, contexts, s, window, d, sp,
     assert torch.equal(got, merged)
 
 
-@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("contexts,window,n_rep,d", DECODE_EDGES)
-def test_paged_decode_kernels_match_plain(cuda, contexts, window, n_rep, d,
-                                          int8):
-    """K2's four decode entry points (``csrc/paged_decode.cu``, S = 1)
-    against the plain version: unstriped out within 2e-2; on each of 2
-    stripes out within 2e-2, m within 1e-3, l within 1e-3 relative, and
-    a row that keeps no key of a stripe out 0, m NEG_INF and l 0
-    exactly; every call one launch of its decode entry point."""
+def _check_entry_points(g, contexts, s, window, n_rep, d, page, n_tbl,
+                        int8, arm):
+    """K2's unstriped entry point of one store and arm against the plain
+    version (out within 2e-2), then its striped one on each of 2 stripes
+    (out within 2e-2, m within 1e-3, l within 1e-3 relative; a row that
+    keeps no key of a stripe out 0, m NEG_INF and l 0 exactly); every
+    call one launch of its entry point of ``arm`` (``"_decode"`` or
+    ``""``, the prefill arm)."""
     from tpushare_torch.ops.quant import quantize_kv
 
     q, kp, vp, table, pos, mesh, stripes = _striped_operands(
-        cuda, contexts, 1, d, 2, h=2 * n_rep, n_tbl=160, per=300)
+        g, contexts, s, d, 2, h=2 * n_rep, page=page, n_tbl=n_tbl, per=300)
     if int8:
         kp, vp = quantize_kv(kp), quantize_kv(vp)
         stripes = [(quantize_kv(k), quantize_kv(v)) for k, v in stripes]
     k2 = attn.paged_decode_attention
-    kind = "_int8" if int8 else ""
-    before = getattr(k2, f"launches_decode{kind}")
+    counter = f"launches{arm}" + ("_int8" if int8 else "")
+    before = getattr(k2, counter)
     out = k2(q, kp, vp, table, pos, window=window)
     ref = attn._paged_plain(q, kp, vp, table, pos, window)
     torch.cuda.synchronize()
-    assert getattr(k2, f"launches_decode{kind}") == before + 1
+    assert getattr(k2, counter) == before + 1
     assert torch.isfinite(out.float()).all()
     assert (out.float() - ref.float()).abs().max().item() <= OUT_TOL
     for t, (ks, vs) in enumerate(stripes):
-        tbl, pmap = attn.striped_local_view(table, 2, t, 300, 16)
-        before = getattr(k2, f"launches_decode{kind}_striped")
+        tbl, pmap = attn.striped_local_view(table, 2, t, 300, page)
+        before = getattr(k2, counter + "_striped")
         o, m, l = k2(q, ks, vs, tbl, pos, window=window, pos_map=pmap,
                      return_stats=True)
         po, pm, pl = attn._paged_plain(q, ks, vs, tbl, pos, window,
                                        pos_map=pmap, return_stats=True)
         torch.cuda.synchronize()
-        assert getattr(k2, f"launches_decode{kind}_striped") == before + 1
+        assert getattr(k2, counter + "_striped") == before + 1
         assert (o.float() - po.float()).abs().max().item() <= OUT_TOL
         assert (m - pm).abs().max().item() <= LSE_TOL
         assert ((l - pl).abs() / pl.clamp_min(1e-30)).max().item() <= LSE_TOL
@@ -340,6 +339,17 @@ def test_paged_decode_kernels_match_plain(cuda, contexts, window, n_rep, d,
         assert torch.equal(l[empty], pl[empty])
         assert (m[empty] == attn.NEG_INF).all()
         assert (o[empty] == 0).all()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("contexts,window,n_rep,d", DECODE_EDGES)
+def test_paged_decode_kernels_match_plain(cuda, contexts, window, n_rep, d,
+                                          int8):
+    """K2's four decode entry points (``csrc/paged_decode.cu``, S = 1)
+    against the plain version on the decode arm's edges, pages of 16 and
+    tables of 160 entries (``_check_entry_points``)."""
+    _check_entry_points(cuda, contexts, 1, window, n_rep, d, 16, 160, int8,
+                        "_decode")
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
@@ -347,52 +357,22 @@ def test_paged_decode_kernels_match_plain(cuda, contexts, window, n_rep, d,
 def test_paged_prefill_kernels_match_plain(cuda, contexts, s, window, n_rep,
                                            d, page, int8):
     """K2's four prefill entry points (``csrc/paged_attn.cu``, S > 1) on
-    the prefill arm's edges, as ``chip_smoke.py`` runs them: unstriped out
-    within 2e-2; on each of 2 stripes out within 2e-2, m within 1e-3, l
-    within 1e-3 relative, a row that keeps no key of a stripe out 0, m
-    NEG_INF and l 0 exactly; every call one launch of its prefill entry
-    point.  The int8 store takes pages of a multiple of 4 only."""
+    the prefill arm's edges, as ``chip_smoke.py`` runs them, each table 8
+    entries wider than its longest row (``_check_entry_points``).  The
+    int8 store takes pages of a multiple of 4 only: at a page of 6 its
+    entry point raises."""
     from tpushare_torch.ops.quant import quantize_kv
 
+    n_tbl = max(-(-c // page) for c in contexts) + 8
     if int8 and page % 4:
+        q, kp, vp, table, pos = _paged_operands(
+            cuda, contexts, s, d, hkv=2, h=2 * n_rep, page=page, n_tbl=n_tbl)
         with pytest.raises(ValueError, match="multiple of 4"):
-            q, kp, vp, table, pos = _paged_operands(
-                cuda, contexts, s, d, hkv=2, h=2 * n_rep, page=page,
-                n_tbl=max(-(-c // page) for c in contexts) + 8)
             attn.paged_decode_attention(q, quantize_kv(kp), quantize_kv(vp),
                                         table, pos, window=window)
         return
-    q, kp, vp, table, pos, mesh, stripes = _striped_operands(
-        cuda, contexts, s, d, 2, h=2 * n_rep, page=page,
-        n_tbl=max(-(-c // page) for c in contexts) + 8, per=300)
-    if int8:
-        kp, vp = quantize_kv(kp), quantize_kv(vp)
-        stripes = [(quantize_kv(k), quantize_kv(v)) for k, v in stripes]
-    k2 = attn.paged_decode_attention
-    kind = "_int8" if int8 else ""
-    before = getattr(k2, f"launches{kind}")
-    out = k2(q, kp, vp, table, pos, window=window)
-    ref = attn._paged_plain(q, kp, vp, table, pos, window)
-    torch.cuda.synchronize()
-    assert getattr(k2, f"launches{kind}") == before + 1
-    assert torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max().item() <= OUT_TOL
-    for t, (ks, vs) in enumerate(stripes):
-        tbl, pmap = attn.striped_local_view(table, 2, t, 300, page)
-        before = getattr(k2, f"launches{kind}_striped")
-        o, m, l = k2(q, ks, vs, tbl, pos, window=window, pos_map=pmap,
-                     return_stats=True)
-        po, pm, pl = attn._paged_plain(q, ks, vs, tbl, pos, window,
-                                       pos_map=pmap, return_stats=True)
-        torch.cuda.synchronize()
-        assert getattr(k2, f"launches{kind}_striped") == before + 1
-        assert (o.float() - po.float()).abs().max().item() <= OUT_TOL
-        assert (m - pm).abs().max().item() <= LSE_TOL
-        assert ((l - pl).abs() / pl.clamp_min(1e-30)).max().item() <= LSE_TOL
-        empty = pl == 0
-        assert torch.equal(l[empty], pl[empty])
-        assert (m[empty] == attn.NEG_INF).all()
-        assert (o[empty] == 0).all()
+    _check_entry_points(cuda, contexts, s, window, n_rep, d, page, n_tbl,
+                        int8, "")
 
 
 def test_k2_arms_by_kernel_name(cuda):

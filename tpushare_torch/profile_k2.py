@@ -288,7 +288,7 @@ def k1_yardstick(iters: int, flush, seed: int = 0) -> dict:
     bound as K2's bf16 prefill row."""
     args = paged_operands((2000,), 2000, seed)
     q, k_pool, v_pool, table = args[:4]
-    k, v = (attn.paged_gather(x, table[:, :125]).contiguous()
+    k, v = (attn.paged_gather(x, table[:, :-(-2000 // PAGE)]).contiguous()
             for x in (k_pool, v_pool))
     fn = lambda: attn.flash_attention_lse(q, k, v)  # noqa: E731
     ms, kernels = device_ms(fn, iters, flush)
