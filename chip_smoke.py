@@ -9,9 +9,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel built from ``tpushare_torch/ops/csrc/*.cu`` by
    ``nvcc`` for ``sm_90a`` (one compiler per source, started together);
-   for K1 and for K3/K4, ptxas's lines of every instantiation (registers,
-   spills, any serialised wgmma: each must show 0 bytes of spill and no
-   serialised wgmma) and whether their SASS holds ``HGMMA`` (wgmma),
+   for K1, K3/K4 and K2's prefill arm (the wgmma kernels), ptxas's lines
+   of every instantiation (registers, spills, any serialised wgmma: each
+   must show 0 bytes of spill and no serialised wgmma) and whether their
+   SASS holds ``HGMMA`` (wgmma),
    ``UTMALDG`` and ``UTMASTG`` (TMA), read with ``cuobjdump`` where the
    toolkit has it;
 3. K1 (flash forward) against its plain PyTorch version at the serving
@@ -40,7 +41,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
    edges, all four entry points (the windowed ring's 64-token chunk at
    a context of ~2000, S not a multiple of 128 at n_rep 1 and 8, a
    window that skips whole key tiles, pages of 16, 8, 4, and 6 for the
-   bf16 pool);
+   bf16 pool, a table of 20,000 entries);
 5. K3 + K4 (flash backward, dK/dV and dQ) against their plain version at
    the training shape (B = 1, S = 2048, 32 heads over 8 kv heads,
    D = 128, causal), with an lse cotangent, at a ragged S = 1000 with and
@@ -183,19 +184,20 @@ def phase_build():
         regs[name] = [ln.strip() for ln in text.splitlines()
                       if "registers" in ln or "spill" in ln]
         _cuda.library(name)
-    # K1 and K3/K4 on Hopper's own paths: wgmma (HGMMA) and TMA (UTMALDG,
-    # UTMASTG) in their SASS, and ptxas's lines (registers, spills, any
-    # serialised wgmma) for every instantiation: no spill, no serialised
-    # wgmma
+    # K1, K3/K4 and K2's prefill arm on Hopper's own paths: wgmma (HGMMA)
+    # and TMA (UTMALDG, UTMASTG) in their SASS, and ptxas's lines
+    # (registers, spills, any serialised wgmma) for every instantiation
+    # (two a kernel of K1 and K3/K4: D 64 and 128; eight of the prefill
+    # arm: D, store and striped): no spill, no serialised wgmma
     out = {"seconds": time.perf_counter() - t0, "per_source_s": took,
            "arch": "sm_90a", "ptxas": regs}
-    for key, lib, kernels in (("k1", "flash_fwd", ("flash_fwd_kernel",)),
-                              ("k3k4", "flash_bwd",
-                               ("dkv_kernel", "dq_kernel"))):
+    for key, lib, kernels, n in (
+            ("k1", "flash_fwd", ("flash_fwd_kernel",), 2),
+            ("k3k4", "flash_bwd", ("dkv_kernel", "dq_kernel"), 4),
+            ("k2p", "paged_attn", ("paged_prefill_kernel",), 8)):
         report = {fn: lines for fn, lines in _cuda.ptxas_report(lib).items()
                   if any(k in fn for k in kernels)}
-        check(len(report) == 2 * len(kernels),
-              f"{key}'s ptxas report: {report}")
+        check(len(report) == n, f"{key}'s ptxas report: {report}")
         for fn, lines in report.items():
             text = " ".join(lines)
             check("0 bytes spill stores, 0 bytes spill loads" in text
@@ -480,15 +482,11 @@ def _k2_decode_edges(torch, attn):
 
 
 def _k2_prefill_edges(torch, attn):
-    """The prefill arm (S > 1) at ``profile_k2.PREFILL_EDGES``, each table
-    8 entries wider than its longest row (``_k2_edges``)."""
+    """The prefill arm (S > 1) at ``profile_k2.PREFILL_EDGES``
+    (``_k2_edges``)."""
     from tpushare_torch import profile_k2
 
-    return _k2_edges(torch, attn, [
-        (contexts, s, window, n_rep, d, page,
-         max(-(-c // page) for c in contexts) + 8)
-        for contexts, s, window, n_rep, d, page in profile_k2.PREFILL_EDGES],
-        "", SEED + 400)
+    return _k2_edges(torch, attn, profile_k2.PREFILL_EDGES, "", SEED + 400)
 
 
 def phase_k2(torch, flush):

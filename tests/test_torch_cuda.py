@@ -353,17 +353,17 @@ def test_paged_decode_kernels_match_plain(cuda, contexts, window, n_rep, d,
 
 
 @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("contexts,s,window,n_rep,d,page", PREFILL_EDGES)
+@pytest.mark.parametrize("contexts,s,window,n_rep,d,page,n_tbl",
+                         PREFILL_EDGES)
 def test_paged_prefill_kernels_match_plain(cuda, contexts, s, window, n_rep,
-                                           d, page, int8):
+                                           d, page, n_tbl, int8):
     """K2's four prefill entry points (``csrc/paged_attn.cu``, S > 1) on
-    the prefill arm's edges, as ``chip_smoke.py`` runs them, each table 8
-    entries wider than its longest row (``_check_entry_points``).  The
-    int8 store takes pages of a multiple of 4 only: at a page of 6 its
-    entry point raises."""
+    the prefill arm's edges, as ``chip_smoke.py`` runs them, a table of
+    20,000 entries among them (``_check_entry_points``).  The int8 store
+    takes pages of a multiple of 4 only: at a page of 6 its entry point
+    raises."""
     from tpushare_torch.ops.quant import quantize_kv
 
-    n_tbl = max(-(-c // page) for c in contexts) + 8
     if int8 and page % 4:
         q, kp, vp, table, pos = _paged_operands(
             cuda, contexts, s, d, hkv=2, h=2 * n_rep, page=page, n_tbl=n_tbl)
@@ -373,6 +373,7 @@ def test_paged_prefill_kernels_match_plain(cuda, contexts, s, window, n_rep,
         return
     _check_entry_points(cuda, contexts, s, window, n_rep, d, page, n_tbl,
                         int8, "")
+
 
 
 def test_k2_arms_by_kernel_name(cuda):

@@ -703,13 +703,11 @@ def paged_decode_attention(q, k_store, v_store, page_table, positions,
     ``_int8_striped``), the table cut into :func:`decode_splits` whose
     partials the kernel's last block for each (row, kv head) folds; at
     S > 1 ``csrc/paged_attn.cu`` (``tpushare_paged_attn`` and its three
-    kin), which stages the table in shared memory beside its K/V stages
-    and refuses (raises) a table wider than fits: about 15K entries for
-    a bf16 pool and 6K for an int8 store at D = 128, half that striped.
-    They take bf16 q, contiguous 16-byte-aligned leaves, head dim
-    64 or 128, an int8 store's pages a multiple of 4 tokens, an int32
-    table, pos_map and positions on the same card, and at S = 1 at most
-    64 q heads a kv head; else the wrapper raises.  The table's entries
+    kin), each key's table entry read a tile ahead.  They take bf16 q,
+    contiguous 16-byte-aligned leaves, head dim 64 or 128, an int8
+    store's pages a multiple of 4 tokens, an int32 table, pos_map and
+    positions on the same card, and at S = 1 at most 64 q heads a kv
+    head; else the wrapper raises.  The table's entries
     must name pages of the pool: the kernels read them unchecked.  The
     decode arm's per-(row, kv head) tickets are one buffer a (card,
     stream).  CPU tensors take :func:`_paged_plain`.  The wrapper counts

@@ -140,15 +140,6 @@ __device__ __forceinline__ void stage_out(unsigned char* base, int half_bytes,
   }
 }
 
-// The block's shared memory as an S, aligned to the 1,024-byte swizzle
-// atom by pointer arithmetic on the __shared__ array itself, so the
-// compiler keeps the shared address space (32-bit addresses, LDS/STS)
-template <class S>
-__device__ __forceinline__ S& aligned_smem(unsigned char* raw) {
-  const uint32_t pad = (1024u - (sm90::smem_addr(raw) & 1023u)) & 1023u;
-  return *reinterpret_cast<S*>(raw + pad);
-}
-
 __device__ __forceinline__ bool keep(int query, int key, int S, int causal,
                                      int window) {
   return query < S && key < S &&
@@ -386,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, 1)
               int H, int Hkv, int S, int causal, int window, float scale,
               float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = aligned_smem<Smem<D>>(smem_raw);
+  Smem<D>& sm = sm90::aligned_smem<Smem<D>>(smem_raw);
   // heaviest causal q-tile first; within a q-tile, heads in order, so the
   // n_rep heads of one kv head run side by side
   const int n_tiles = (S + kRows - 1) / kRows;
@@ -695,7 +686,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                int H, int Hkv, int S, int causal, int window, float scale,
                float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = aligned_smem<Smem<D>>(smem_raw);
+  Smem<D>& sm = sm90::aligned_smem<Smem<D>>(smem_raw);
   // heaviest causal key tile first; within a key tile, kv heads in order
   const int n_bkv = gridDim.x / ((S + kTile - 1) / kTile);
   const int k0 = blockIdx.x / n_bkv * kTile;

@@ -31,15 +31,17 @@
 //   only waits for and releases the tiles outside its range.  A consumer
 //   whose rows see no key writes out 0 (striped: m NEG_INF, l 0).
 // * The producer warpgroup copies 128-key K and V tiles, K one tile ahead
-//   of V, by cp.async: 16-byte chunks through the staged page-table rows
-//   into the 128-byte-swizzled layout wgmma's descriptors read, keys past
-//   the walk zero-filled; any page size.  After its copies land, each
-//   thread fences them for the async proxy (fence.proxy.async: wgmma
-//   reads shared memory through it and could see stale bytes without it)
-//   and arrives on the stage's full barrier.  The int8 store's raw rows
-//   and scales (four a 16-byte chunk, so page % 4 == 0) go into one of
-//   two raw slots while the producer dequantizes the previous tile into
-//   the stage, each element bf16(f32(q) * s) as the TPU body rounds it.
+//   of V, by cp.async: 16-byte chunks through the page table (each thread
+//   reads its key's entry from global memory a K tile ahead) into the
+//   128-byte-swizzled layout wgmma's descriptors read, keys past the walk
+//   zero-filled; any page size and any table width.  After its copies
+//   land, each thread fences them for the async proxy (fence.proxy.async:
+//   wgmma reads shared memory through it and could see stale bytes
+//   without it) and arrives on the stage's full barrier.  The int8
+//   store's raw rows and scales (four a 16-byte chunk, so page % 4 == 0)
+//   go into one of two raw slots while the producer dequantizes the
+//   previous tile into the stage, each element bf16(f32(q) * s) as the
+//   TPU body rounds it.
 // * The consumers run S = Q K^T as wgmma m64n128k16 SS and O += P V as
 //   RS with P from the S accumulator rounded to bf16 and V read
 //   transposed; tile j's S is issued before tile j - 1's P V, so the
@@ -56,12 +58,12 @@
 // before PV while l sums the f32 p, l clamped to 1e-30.
 //
 // The striped variant (kStriped) reads one position stripe's local table:
-// the block stages pos_map beside the table, a consumer's walk ends after
-// the entries that start at or before its last position and starts at the
-// first its window reaches (counts: pos_map increases), and the producer
-// writes each K tile's key positions to shared memory for the mask.  It
-// writes each row's softmax partials m (base e) and l (unclamped) for the
-// cross-stripe merge (sp_merge_partials).
+// a consumer's walk ends after the entries that start at or before its
+// last position and starts at the first its window reaches (counts:
+// pos_map increases), and the producer reads each key's pos_map entry with
+// its table entry and writes each K tile's key positions to shared memory
+// for the mask.  It writes each row's softmax partials m (base e) and l
+// (unclamped) for the cross-stripe merge (sp_merge_partials).
 #include <climits>
 #include <type_traits>
 
@@ -91,10 +93,11 @@ constexpr int kBlockThreads = 3 * 128;      // producer + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kProducerBar = 3;  // named barrier of the producer warpgroup
 // setmaxnreg: the producer's copies and int8 dequantization need more
-// than the 24 registers a TMA-only producer keeps (at 40 it spilled).
-// The launch gives each of the 384 threads 168 registers, and the
-// consumers' setmaxnreg.inc takes only what the producer's .dec gave back
-// (asked for more, it waits for ever): 128 * (168 - P) >= 256 * (C - 168)
+// than the 24 registers a TMA-only producer keeps (at 24 they spill; at
+// 40 the int8 loads run slower).  The launch gives each of the 384
+// threads 168 registers, and the consumers' setmaxnreg.inc takes only
+// what the producer's .dec gave back (asked for more, it waits for
+// ever): 128 * (168 - P) >= 256 * (C - 168)
 constexpr int kProducerRegs = 56;
 constexpr int kConsumerRegs = 224;
 static_assert(kProducerRegs + 2 * kConsumerRegs <= 3 * 168,
@@ -160,13 +163,22 @@ struct Producer {
   static constexpr int kS = Sm::kStages;
   Sm& sm;
   Pool pool;
-  const int* tbl_s;
-  const int* pos_s;
+  const int* table;    // row b of the page table
+  const int* pos_map;  // kStriped only
   int kh, Hkv, page, kb, ke, tid;
+  // this thread's key of the next K tile: its table entry (and pos_map
+  // entry), loaded a tile ahead so the read is in flight meanwhile
+  int ent = 0, ent_pos = 0;
+  // striped: the position of this thread's key of the last even and odd
+  // K tiles issued (INT_MAX past ke), written to tile_pos when the tile
+  // is finished (K tile 0 is finished after K tile 1's issue)
+  int pos_even = 0, pos_odd = 0;
 
-  __device__ __forceinline__ size_t slot(int key) const {
-    return (static_cast<size_t>(tbl_s[key / page]) * Hkv + kh) * page +
-           key % page;
+  // the entries of this thread's key of K tile i (clamped to the walk)
+  __device__ __forceinline__ void fetch(int i) {
+    const int j = min(kb + i * kTile + tid, ke - 1) / page;
+    ent = table[j];
+    if constexpr (kStriped) ent_pos = pos_map[j];
   }
   __device__ __forceinline__ uint64_t* full(bool is_v, int s) {
     return is_v ? &sm.v_full[s] : &sm.k_full[s];
@@ -181,15 +193,26 @@ struct Producer {
   // Start the copies of K or V tile i: its raw int8 rows into raw slot
   // `rs`, or its bf16 rows straight into its stage once the stage is
   // free; keys past ke are zero-filled.  K's issue first writes each
-  // key's pool row (one division by the page a thread) into tile_slot,
+  // key's pool row (from the entry fetched a tile ahead) into tile_slot,
   // which V's issue of the same tile reads again: a thread rewrites slot
   // i % 3 only after the barrier of tile i + 2's issue, which every
   // thread reaches after its reads of tile i.
   __device__ __forceinline__ void issue(bool is_v, int i, int rs) {
     const int key0 = kb + i * kTile;
     uint32_t* rows = sm.tile_slot[i % kSlotRing];
-    if (!is_v)
-      rows[tid] = static_cast<uint32_t>(slot(min(key0 + tid, ke - 1)));
+    if (!is_v) {
+      const int key = key0 + tid, lane = min(key, ke - 1) % page;
+      rows[tid] = static_cast<uint32_t>(
+          (static_cast<size_t>(ent) * Hkv + kh) * page + lane);
+      if constexpr (kStriped) {
+        const int kp = key < ke ? ent_pos + lane : INT_MAX;
+        if (i & 1)
+          pos_odd = kp;
+        else
+          pos_even = kp;
+      }
+      fetch(i + 1);
+    }
     // int8: also every thread is done dequantizing the load that used
     // this raw slot
     if (kInt8 || !is_v) sm90::named_barrier(kProducerBar, 128);
@@ -204,10 +227,13 @@ struct Producer {
                    src + static_cast<size_t>(rows[r]) * D + c * 16,
                    key0 + r < ke);
       // four scales a chunk: key0 is a multiple of 128 and page of 4, so
-      // the four keys of a chunk share a page
+      // the four keys of a chunk share a page and a 16-byte-aligned
+      // address; a chunk past ke reads from row 0, aligned too (cp.async
+      // wants its source aligned whatever it copies)
       if (tid < kTile / 4) {
         const float* s = is_v ? pool.vs : pool.ks;
-        cp_async16(&raw.s[4 * tid], s + rows[4 * tid], key0 + 4 * tid < ke);
+        const bool valid = key0 + 4 * tid < ke;
+        cp_async16(&raw.s[4 * tid], s + (valid ? rows[4 * tid] : 0), valid);
       }
     } else {
       const int s = i % kS;
@@ -242,14 +268,10 @@ struct Producer {
         dequant8(reinterpret_cast<bf16*>(swz(dst, r, c)), &raw.v[r][c * 8],
                  raw.s[r]);
     }
-    if constexpr (kStriped) {
-      if (!is_v) {
-        // the global positions of the tile's keys, INT_MAX past ke
-        const int key = kb + i * kTile + tid;
-        sm.tile_pos[i % Sm::kPosSlots][tid] =
-            key < ke ? pos_s[key / page] + key % page : INT_MAX;
-      }
-    }
+    // the global positions of the tile's keys, INT_MAX past ke
+    if constexpr (kStriped)
+      if (!is_v)
+        sm.tile_pos[i % Sm::kPosSlots][tid] = (i & 1) ? pos_odd : pos_even;
     sm90::fence_proxy_async();
     sm90::mbar_arrive(full(is_v, s));
   }
@@ -257,6 +279,7 @@ struct Producer {
   // K of tile i, then V of tile i - 1; each load's copies are in flight
   // while the previous one is finished
   __device__ __forceinline__ void run(int n) {
+    if (n > 0) fetch(0);
     bool have = false, pv = false;
     int pi = 0, n_issued = 0;
     auto step = [&](bool is_v, int i) {
@@ -390,7 +413,15 @@ __device__ __forceinline__ void consume(Smem<D, kInt8>& sm,
   const int pa = ra < rows ? pos_b[ra % S] : -1;
   const int pb = ra + 8 < rows ? pos_b[(ra + 8) % S] : -1;
   const int kb = sm.kb, ke = sm.ke;
-  const int c_lo = sm.lo[cw], c_hi = sm.hi[cw];
+  // a key is kept by row a (b) where its position lies in (lo_a, hi_a]
+  // (past ke none: unstriped by hi, striped by tile_pos's INT_MAX), and
+  // by every row of this warpgroup where it lies in (w_lo, w_hi]
+  const int hi_a = kStriped ? pa : min(pa, ke - 1);
+  const int hi_b = kStriped ? pb : min(pb, ke - 1);
+  const int lo_a = window > 0 ? pa - window : INT_MIN;
+  const int lo_b = window > 0 ? pb - window : INT_MIN;
+  const int w_hi = kStriped ? sm.lo[cw] : min(sm.lo[cw], ke - 1);
+  const int w_lo = window > 0 ? sm.hi[cw] - window : INT_MIN;
   // this warpgroup's tiles, warp-uniform to ptxas (a wgmma behind a branch
   // it cannot prove uniform is serialised)
   int t_lo = n, t_hi = n;
@@ -416,29 +447,22 @@ __device__ __forceinline__ void consume(Smem<D, kInt8>& sm,
   auto fold = [&](float (&sc)[64], float (&m)[2], float (&l)[2],
                   float (&alpha)[2], int i) {
     const int key0 = kb + i * kTile;
-    if constexpr (kStriped) {
-      const int* tp = sm.tile_pos[i % Smem<D, kInt8>::kPosSlots];
-      auto keep = [&](int e, int j) {
-        const int qp = (e >> 1) ? pb : pa;
-        const int kp = tp[8 * j + 2 * t + (e & 1)];  // INT_MAX past ke
-        return kp <= qp && (window <= 0 || kp > qp - window);
-      };
-      if (tp[kTile - 1] <= c_lo && (window <= 0 || tp[0] > c_hi - window))
-        softmax_tile<false>(sc, m, l, alpha, scale_log2, keep);
+    const int* tp = sm.tile_pos[i % Smem<D, kInt8>::kPosSlots];
+    // the position of the tile's key k (positions increase in a tile)
+    auto pos = [&](int k) {
+      if constexpr (kStriped)
+        return tp[k];
       else
-        softmax_tile<true>(sc, m, l, alpha, scale_log2, keep);
-    } else {
-      auto keep = [&](int e, int j) {
-        const int qp = (e >> 1) ? pb : pa;
-        const int key = key0 + 8 * j + 2 * t + (e & 1);
-        return key < ke && key <= qp && (window <= 0 || key > qp - window);
-      };
-      if (key0 + kTile <= ke && key0 + kTile - 1 <= c_lo &&
-          (window <= 0 || key0 > c_hi - window))
-        softmax_tile<false>(sc, m, l, alpha, scale_log2, keep);
-      else
-        softmax_tile<true>(sc, m, l, alpha, scale_log2, keep);
-    }
+        return key0 + k;
+    };
+    auto keep = [&](int e, int j) {
+      const int kp = pos(8 * j + 2 * t + (e & 1));
+      return (e >> 1) ? kp <= hi_b && kp > lo_b : kp <= hi_a && kp > lo_a;
+    };
+    if (pos(kTile - 1) <= w_hi && pos(0) > w_lo)
+      softmax_tile<false>(sc, m, l, alpha, scale_log2, keep);
+    else
+      softmax_tile<true>(sc, m, l, alpha, scale_log2, keep);
   };
 
   float o[D / 2], sc[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -561,10 +585,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   constexpr bool kInt8 = std::is_same<Pool, Int8Pool>::value;
   using Sm = Smem<D, kInt8>;
   extern __shared__ unsigned char smem_raw[];
-  Sm& sm = *reinterpret_cast<Sm*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  int* tbl_s = reinterpret_cast<int*>(&sm + 1);  // [n_tbl]
-  int* pos_s = tbl_s + n_tbl;                    // [n_tbl], kStriped only
+  Sm& sm = sm90::aligned_smem<Sm>(smem_raw);
   const int n_rep = H / Hkv, rows = n_rep * S;
   // Block order: band k of every q head's positions (its last 128
   // positions first: the heaviest causal rows), then (b, kh), then the q
@@ -654,15 +675,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   __syncthreads();
   const int kb = sm.kb, ke = sm.ke;
   const int n = (ke - kb + kTile - 1) / kTile;
-  // the page-table entries the block walks (and their positions), staged
-  // once in shared memory
-  if (kb < ke)
-    for (int j = kb / page + threadIdx.x; j <= (ke - 1) / page;
-         j += kBlockThreads) {
-      tbl_s[j] = table[static_cast<size_t>(b) * n_tbl + j];
-      if constexpr (kStriped) pos_s[j] = pos_map[j];
-    }
-  __syncthreads();
 
   // The two paths never join again (ptxas honours setmaxnreg only then).
   const int wg = threadIdx.x / 128;
@@ -674,7 +686,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       for (int h = 0; h < Sm::kHalves; ++h)
         sm90::tma_load_3d(sm.q[h], &tq, &sm.q_full, 64 * h, r0, bkh);
     }
-    Producer<D, Pool, kStriped>{sm, pool, tbl_s, pos_s, kh, Hkv, page,
+    const int* table_b = table + static_cast<size_t>(b) * n_tbl;
+    Producer<D, Pool, kStriped>{sm, pool, table_b, pos_map, kh, Hkv, page,
                                 kb, ke, static_cast<int>(threadIdx.x)}
         .run(n);
   } else {
@@ -694,15 +707,11 @@ static int launch(const Pool& pool, const Args& a, cudaStream_t stream) {
   if (!sm90::make_tmap_bf16_3d(&tq, a.q, a.B * a.Hkv, rows, D, kTile) ||
       !sm90::make_tmap_bf16_3d(&to, a.o, a.B * a.Hkv, rows, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<D, kInt8>() +
-                      sizeof(int) * (kStriped ? 2 : 1) * a.n_tbl;
-  // the most a block may ask for: a table wider than what is left after
-  // the stages is refused
-  constexpr int kMaxSmem = 232448;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = smem_bytes<D, kInt8>();
+  static_assert(smem <= 232448, "more shared memory than a block may have");
   static const cudaError_t attr = cudaFuncSetAttribute(
       paged_prefill_kernel<D, Pool, kStriped>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int bands = (a.S + kTile - 1) / kTile;
   paged_prefill_kernel<D, Pool, kStriped>
@@ -737,9 +746,7 @@ static int dispatch(const Pool& pool, const Args& a, void* stream) {
 
 // Each entry point returns cudaGetLastError() after the launch (0 =
 // launched), or cudaErrorInvalidValue for what it does not take: a head
-// dim other than 64 or 128, or a table whose staged entries do not fit
-// beside the stages in shared memory (about 15K entries for the bf16
-// pool at D = 128, 6K for the int8 store; half that striped).
+// dim other than 64 or 128.
 extern "C" int tpushare_paged_attn(const void* q, const void* kpool,
                                    const void* vpool, const void* table,
                                    const void* positions, void* o, int B,

@@ -40,6 +40,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The block's shared memory as an S, aligned to the 1,024-byte swizzle
+// atom by pointer arithmetic on the __shared__ array itself, so the
+// compiler keeps the shared address space (32-bit addresses, LDS/STS)
+template <class S>
+__device__ __forceinline__ S& aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (smem_addr(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(raw + pad);
+}
+
 // ---------------------------------------------------------------- mbarrier
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(

@@ -47,9 +47,8 @@ PROMPTS = (256, 512, 1000, 2000, 300, 700, 1200, 1600)
 
 #: K2's striped instantiations, both arms (``paged_prefill_kernel<D,
 #: Pool, true>`` at S > 1, ``paged_decode_kernel<D, Pool, true>`` at
-#: S = 1, its combine folded into its tail; ``paged_attn_kernel`` is the
-#: prefill arm's earlier body)
-STRIPED_K2 = re.compile(r"paged_(attn|prefill|decode)_kernel<.*true>")
+#: S = 1, its combine folded into its tail)
+STRIPED_K2 = re.compile(r"paged_(prefill|decode)_kernel<.*true>")
 
 
 def _summary(prof, wall_s: float, prof_wall_s: float, steps: int,

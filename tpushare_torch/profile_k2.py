@@ -62,22 +62,26 @@ DECODE_EDGES = (([1, 9, 255, 256, 257], None, 4, 128),
                 ([769], None, 8, 64),
                 ([2560], 256, 4, 128))
 #: the prefill arm's edges (S > 1, ``csrc/paged_attn.cu``): (contexts,
-#: S, window, n_rep, D, page), q at each row's last S positions: the
+#: S, window, n_rep, D, page, n_tbl), q at each row's last S positions,
+#: each table 8 entries wider than its longest row but the last: the
 #: windowed ring's 64-token chunk at a context of ~2000, alone and in a
 #: window of 256; S not a multiple of 128 at n_rep 1 (tiles that cross a
 #: q head) and at n_rep 8; a window that skips whole key tiles; pages of
 #: 8 and 4; a page of 6 (the bf16 pool takes any page, the int8 store a
-#: multiple of 4: its entry points skip it).  ``chip_smoke.py`` and the
-#: ``cuda`` tests run each through every entry point that takes its page,
-#: the striped ones on each of 2 stripes.
-PREFILL_EDGES = (([2000, 1990], 64, None, 4, 128, 16),
-                 ([1990, 700], 64, 256, 4, 128, 16),
-                 ([300, 1000], 200, None, 1, 128, 16),
-                 ([777], 777, None, 8, 64, 16),
-                 ([1000, 900], 1000, 300, 4, 128, 16),
-                 ([513, 129], 129, 100, 4, 128, 8),
-                 ([260], 130, None, 4, 64, 4),
-                 ([150], 100, None, 4, 128, 6))
+#: multiple of 4: its entry points skip it); a table of 20,000 entries
+#: (the kernel reads each key's entry from global memory, so shared
+#: memory does not bound the width).  ``chip_smoke.py`` and the ``cuda``
+#: tests run each through every entry point that takes its page, the
+#: striped ones on each of 2 stripes.
+PREFILL_EDGES = (([2000, 1990], 64, None, 4, 128, 16, 133),
+                 ([1990, 700], 64, 256, 4, 128, 16, 133),
+                 ([300, 1000], 200, None, 1, 128, 16, 71),
+                 ([777], 777, None, 8, 64, 16, 57),
+                 ([1000, 900], 1000, 300, 4, 128, 16, 71),
+                 ([513, 129], 129, 100, 4, 128, 8, 73),
+                 ([260], 130, None, 4, 64, 4, 73),
+                 ([150], 100, None, 4, 128, 6, 33),
+                 ([1000, 700], 64, None, 4, 128, 4, 20000))
 ENTRY_POINTS = ("bf16", "int8", "bf16_striped", "int8_striped")
 
 

@@ -14,6 +14,12 @@ from torch.profiler import ProfilerActivity, profile
 #: FLOP/s and HBM bytes/s, the two rates a kernel's bound is taken over
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+#: how many times device_ms takes a profiler window that came back empty
+#: or with launches lost
+_WINDOW_ATTEMPTS = 3
+#: the L2 flush's kernel names, from the process's first window that
+#: showed them (every flush is l2_flush_buffer's uint8 zeroing)
+_flush_names: set = set()
 
 
 def l2_flush_buffer() -> torch.Tensor:
@@ -53,7 +59,7 @@ def _device_kernels(prof) -> dict:
     return out
 
 
-def device_ms(fn, iters: int, flush: torch.Tensor, attempts: int = 3):
+def device_ms(fn, iters: int, flush: torch.Tensor):
     """The device time of one call of ``fn``: the summed durations of the
     kernels it launches, by ``torch.profiler``, mean over ``iters`` calls,
     each after the L2 is flushed (the flush's own kernels left out).
@@ -66,23 +72,23 @@ def device_ms(fn, iters: int, flush: torch.Tensor, attempts: int = 3):
     from a window of three, and the timed window has two before its
     first call; a kernel of the call seen a number of times that is not
     a multiple of ``iters`` raises.  A window that came back empty, or
-    with launches lost, is taken again, up to ``attempts`` times (a
-    window of three flushes once came back empty)."""
-    flush_names = set()
-    for _ in range(attempts):
+    with launches lost, is taken again, up to ``_WINDOW_ATTEMPTS`` times
+    (a window of three flushes once came back empty, three times running
+    in one process: so the flush's names are taken once a process)."""
+    for _ in range(_WINDOW_ATTEMPTS):
+        if _flush_names:
+            break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 flush.zero_()
             torch.cuda.synchronize()
-        flush_names = set(_device_kernels(prof))
-        if flush_names:
-            break
-    if not flush_names:
+        _flush_names.update(_device_kernels(prof))
+    if not _flush_names:
         raise RuntimeError("the profiler saw no kernel of the L2 flush")
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for _ in range(_WINDOW_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(2):
                 flush.zero_()
@@ -91,7 +97,7 @@ def device_ms(fn, iters: int, flush: torch.Tensor, attempts: int = 3):
                 fn()
             torch.cuda.synchronize()
         kernels = {k: v for k, v in _device_kernels(prof).items()
-                   if k not in flush_names}
+                   if k not in _flush_names}
         lost = {k: n for k, (_, n) in kernels.items() if n % iters}
         if kernels and not lost:
             break
