@@ -74,7 +74,10 @@ CUDA toolkit.  Phases, each printing one JSON line:
    greedy ``/generate`` of 32 new tokens through ``generate_fused``, its
    tokens per second; its first-step and first decode-step logits
    against the dense batcher's within the same tolerance, its first two
-   tokens their argmaxes; no kernel runs;
+   tokens their argmaxes, and beside them a one-row dense batcher's; on
+   the weights widened to f32 its first-step and first decode-step logits
+   against a one-row f32 dense batcher's within F32_LOGIT_TOL; no kernel
+   runs;
 10. rolling: Mistral-7B at full width and depth (bf16 random weights) on
     a ``ContinuousBatcher`` with AUTO rolling slots (4 rings of 4,096
     tokens, 2.15 GB, an eighth of a full row each): a 5,000-token greedy
@@ -1107,8 +1110,13 @@ def phase_generate(torch, card: str, shared: dict):
     its first decode step's (``make_decode_fns``' step, which
     ``generate_fused`` runs) are held to the dense batcher's within the
     dense phase's tolerance; its first token is the dense batcher's
-    argmax and its second the decode step's."""
+    argmax and its second the decode step's.  The same two steps of a
+    one-row dense batcher are read beside them (the bf16 gap traced to
+    the rows a GEMM holds), and on the weights widened to f32 both of
+    generate's steps are held to a one-row f32 dense batcher's within
+    F32_LOGIT_TOL, where bf16 noise no longer hides a wrong key."""
     from tpushare_torch.models import transformer as tf
+    from tpushare_torch.serving.continuous import ContinuousBatcher
     from tpushare_torch.serving.generate import make_decode_fns
     from tpushare_torch.serving.llm import LLMServer, kernel_launches
 
@@ -1156,13 +1164,64 @@ def phase_generate(torch, card: str, shared: dict):
     check(max(err) <= shared["tol"],
           f"generate's first-step and decode-step logits {err} from the "
           f"dense batcher's, past {shared['tol']}")
+    # the bf16 decode-step gap, traced: the dense batcher holding this
+    # one row alone (its GEMMs over one row, as generate's) from the same
+    # token
+    one = ContinuousBatcher(params, cfg, 1, device="cuda")
+    one_err = [(_first_logits(one, [prompt])[0] - first).abs().max().item(),
+               (_step_logits(one, [prompt], [tok])[0]
+                - second).abs().max().item()]
+    del one
     torch.cuda.empty_cache()
+    err32 = _generate_f32_errors(torch, params, cfg, prompt)
+    check(max(err32) <= F32_LOGIT_TOL,
+          f"f32 generate first-step and decode-step logits {err32} from "
+          f"the f32 dense batcher's, past {F32_LOGIT_TOL}")
     return {"model": "llama3-8b", "card": card, "prompt": len(prompt),
             "new_tokens": 32, "walls_s": walls,
             "tokens_per_s": 32 / walls[1],
             "first_logit_max_abs_err": err[0],
             "step_logit_max_abs_err": err[1], "logit_tol": shared["tol"],
+            "one_row_dense_first_logit_max_abs_err": one_err[0],
+            "one_row_dense_step_logit_max_abs_err": one_err[1],
+            "f32_first_logit_max_abs_err": err32[0],
+            "f32_step_logit_max_abs_err": err32[1],
             "launches": launches, "tokens": row[len(prompt):]}
+
+
+def _generate_f32_errors(torch, params, cfg, prompt):
+    """``params`` widened to f32: ``make_decode_fns``' first-step logits
+    for ``prompt`` and its first decode step's (from the dense batcher's
+    argmax) against a one-row f32 dense batcher's, as max abs
+    differences.  Both hold one row, beside the bf16 weights."""
+    import dataclasses
+
+    from tpushare_torch.models import transformer as tf
+    from tpushare_torch.serving.continuous import ContinuousBatcher
+    from tpushare_torch.serving.generate import make_decode_fns
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    p32 = _widened(params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    dense = ContinuousBatcher(p32, c32, 1, device="cuda")
+    want = _first_logits(dense, [prompt])
+    tok = int(want[0].argmax())
+    want += _step_logits(dense, [prompt], [tok])
+    del dense
+    torch.cuda.empty_cache()
+    prefill, step = make_decode_fns(c32)
+    caches = tf.init_kv_caches(c32, 1, device="cuda")
+    logits, _ = prefill(p32, torch.tensor([prompt], device="cuda"), caches,
+                        len(prompt))
+    got = [logits[0].float()]
+    logits, _ = step(p32, torch.tensor([tok], device="cuda"), caches,
+                     len(prompt))
+    got.append(logits[0].float())
+    del caches, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [(g - w).abs().max().item() for g, w in zip(got, want)]
 
 
 #: the rolling phase's prompt, longer than Mistral-7B's 4,096-token ring

@@ -4,8 +4,7 @@ ticked, fused and mixed rounds, against the golden streams of
 ``tests/golden_kv_bf16.json`` (read, never recomputed) and the live JAX
 batcher, on the golden scenarios' ``tiny`` weights carried over by the
 bridge.  Also: sampled streams equal across the three rounds, the
-``storage_info`` integers equal JAX's, and the paged batcher's refusals
-of the rounds it has not ported."""
+``storage_info`` integers equal JAX's."""
 
 import dataclasses
 import json
@@ -22,7 +21,6 @@ from tpushare.serving.continuous import ContinuousBatcher as JaxBatcher
 from tpushare_torch.models import transformer as ttf
 from tpushare_torch.models.bridge import params_from_numpy
 from tpushare_torch.serving.continuous import ContinuousBatcher
-from tpushare_torch.serving.paged import PagedContinuousBatcher
 
 from kv_golden_scenarios import FULL_REQS, WIN_REQS, _drain_fused, \
     _drain_mixed
@@ -197,11 +195,3 @@ def test_storage_info_integers_equal_jax(weights, window, kv_dtype,
     with pytest.raises(ValueError, match="sliding-window"):
         _batcher(weights, rolling_slots=True)
 
-
-def test_paged_batcher_refuses_the_rounds_it_has_not_ported(weights):
-    b = PagedContinuousBatcher(weights["full"][1], _cfg(), n_slots=2,
-                               page_size=4, device="cpu")
-    for call in (lambda: b.admit_chunked([1, 2, 3], 4),
-                 lambda: b.tick_fused(2), lambda: b.tick_mixed(2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.2"):
-            call()

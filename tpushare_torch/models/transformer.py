@@ -118,6 +118,12 @@ def mistral_7b() -> ModelConfig:
                        rope_theta=1e4, window=4096)
 
 
+def llama2_7b() -> ModelConfig:
+    """Llama-2-7B architecture: full multi-head attention (32 kv heads),
+    SwiGLU ff 11008, a 4k context (the reference's ``ModelConfig()``)."""
+    return ModelConfig()
+
+
 def llama3_8b() -> ModelConfig:
     """Llama-3-8B architecture: GQA 8 kv-heads, 128k vocab, theta 5e5."""
     return ModelConfig(vocab=128256, d_model=4096, n_layers=32, n_heads=32,
@@ -773,7 +779,13 @@ def forward_paged_decode(params, tokens, cfg: ModelConfig, pools,
     positions = (lengths[:, None]
                  + torch.arange(s, device=lengths.device,
                                 dtype=torch.int32)[None, :]).contiguous()
-    page_ids = page_table.gather(1, (lengths // page)[:, None].long())[:, 0]
+    # a slot that finished mid-round decodes its surplus steps on; past
+    # the table's end they land on the trash page
+    idx = (lengths // page)[:, None].long()
+    n_tbl = page_table.shape[1]
+    page_ids = torch.where(
+        idx < n_tbl, page_table.gather(1, idx.clamp(max=n_tbl - 1)),
+        0)[:, 0]
     ids = _stripe_page_ids(page_ids.long(), stripes, mesh)
     offsets = [(lengths % page).long().to(i.device) for i in ids]
     rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -797,6 +809,53 @@ def forward_paged_decode(params, tokens, cfg: ModelConfig, pools,
     return _head_mm(x, params["lm_head"]), pools
 
 
+def _paged_prefill_rows(params, tokens, cfg: ModelConfig, pools, page_rows,
+                        pos, mesh=None):
+    """THE paged prefill body: row r's window tokens[r] [W] into the pages
+    of its table row ``page_rows[r]`` at offset ``pos[r]`` (int64 [R] on
+    the tokens' device).  Each layer writes every row's K/V pages in
+    place first (one indexed store of R * W / page pages), then the
+    queries at ``pos[:, None] + arange(W)`` attend history and their own
+    window through :func:`paged_attention` (K2's S > 1 arm on the card,
+    once a layer for all R rows).  Returns (the final-norm hidden states
+    [R, W, d_model], pools).  The caller keeps W and every ``pos`` page
+    multiples with ``pos + W <= max_seq``; the one chunk and the batch of
+    chunks are this body, so the two cannot drift."""
+    r, s = tokens.shape
+    stripes = _pool_stripes(pools, mesh)
+    page = _kv_leaf(stripes[0][0]).shape[3]
+    n_chunks = s // page
+    positions = (pos[:, None] + torch.arange(s, device=tokens.device)[None, :]
+                 ).to(torch.int32)
+    pids = page_rows.long().gather(
+        1, (pos // page)[:, None]
+        + torch.arange(n_chunks, device=tokens.device)[None, :])
+    ids = _stripe_page_ids(pids.reshape(-1), stripes, mesh)
+    hkv = cfg.n_kv_heads
+    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = _embed(params, tokens, cfg)
+    for l, layer in enumerate(_layers(params)):
+        def attend(lyr, xin, l=l):
+            q, k, v = _qkv(lyr, xin, cfg, rot)             # k [R, Hkv, W, D]
+            new = (_kv_pack(k, cfg), _kv_pack(v, cfg))
+            # live rows own distinct pages; a padded row's all-zero table
+            # sends every one of its pages to the trash page, which
+            # repeats harmlessly (masked out of every softmax)
+            for pair, pid in zip(stripes, ids):
+                for pool, st in zip(pair, new):
+                    for leaf, part in zip(_kv_leaves(pool), _kv_leaves(st)):
+                        leaf[l][pid] = part.reshape(
+                            r, hkv, n_chunks, page, part.shape[-1]
+                        ).transpose(1, 2).reshape(
+                            r * n_chunks, hkv, page,
+                            part.shape[-1]).to(leaf.device)
+            return paged_attention(q, *_layer_stores(stripes, l, mesh),
+                                   page_rows, positions, cfg, mesh=mesh)
+
+        x = _attn_ffn(layer, x, cfg, attend)
+    return rmsnorm(x, params["final_scale"], cfg.norm_eps), pools
+
+
 @torch.inference_mode()
 def forward_paged_prefill_chunk(params, tokens, cfg: ModelConfig, pools,
                                 page_rows, pos: int, last_idx: int,
@@ -807,45 +866,51 @@ def forward_paged_prefill_chunk(params, tokens, cfg: ModelConfig, pools,
     page-aligned; page_rows [max_seq // page] int32, the slot's page-table
     row (global page ids; pools striped under ``mesh``).  The window's K/V
     pages are written in place first, then its queries attend history and
-    themselves through the pool.  A padded tail is contained: within the
-    reservation it sits at positions the next window or decode overwrites
-    before they are attendable, past the reservation the 0-padded row
-    sends it to the trash page.  Returns (logits [vocab] f32 at
-    ``last_idx``, pools)."""
+    themselves through the pool (:func:`_paged_prefill_rows`).  A padded
+    tail is contained: within the reservation it sits at positions the
+    next window or decode overwrites before they are attendable, past the
+    reservation the 0-padded row sends it to the trash page.  Returns
+    (logits [vocab] f32 at ``last_idx``, pools)."""
     b, s = tokens.shape
     if b != 1:
         raise ValueError("paged prefill is per-request (batch 1)")
-    stripes = _pool_stripes(pools, mesh)
-    page = _kv_leaf(stripes[0][0]).shape[3]
+    page = _kv_leaf(_pool_stripes(pools, mesh)[0][0]).shape[3]
     if s % page or pos % page:
         raise ValueError("prefill window and offset must be page-aligned")
-    n_chunks, first = s // page, pos // page
-    if first + n_chunks > page_rows.shape[0]:
+    if (pos + s) // page > page_rows.shape[0]:
         raise ValueError("prefill window runs past the page table")
-    positions = (pos + torch.arange(s, device=tokens.device,
-                                    dtype=torch.int32))[None, :]
-    ids = _stripe_page_ids(page_rows[first:first + n_chunks].long(), stripes,
-                           mesh)
-    table = page_rows[None]
-    hkv = cfg.n_kv_heads
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    x = _embed(params, tokens, cfg)
-    for l, layer in enumerate(_layers(params)):
-        def attend(lyr, xin, l=l):
-            q, k, v = _qkv(lyr, xin, cfg, rot)             # k [1, Hkv, W, D]
-            new = (_kv_pack(k, cfg), _kv_pack(v, cfg))
-            for pair, pid in zip(stripes, ids):
-                for pool, st in zip(pair, new):
-                    for leaf, part in zip(_kv_leaves(pool), _kv_leaves(st)):
-                        leaf[l][pid] = part[0].reshape(
-                            hkv, n_chunks, page, part.shape[-1]).transpose(
-                                0, 1).to(leaf.device)
-            return paged_attention(q, *_layer_stores(stripes, l, mesh),
-                                   table, positions, cfg, mesh=mesh)
-
-        x = _attn_ffn(layer, x, cfg, attend)
-    x = rmsnorm(x, params["final_scale"], cfg.norm_eps)
+    x, pools = _paged_prefill_rows(
+        params, tokens, cfg, pools, page_rows[None],
+        torch.full((1,), pos, dtype=torch.long, device=tokens.device),
+        mesh=mesh)
     return _head_mm(x[0, last_idx], params["lm_head"]), pools
+
+
+@torch.inference_mode()
+def forward_paged_prefill_batch(params, tokens, cfg: ModelConfig, pools,
+                                page_rows, pos, last_idx, mesh=None):
+    """Coalesced MULTI-prompt prefill, the prefill half of a mixed round:
+    one window a row, each into its own slot's reserved pages, in one
+    forward (K2's S > 1 arm once a layer for all rows).
+
+    tokens [R, W] with W a page multiple; page_rows [R, max_seq // page]
+    int32 (each row's page-table row; a padded row's is all zeros, so its
+    writes land on the masked trash page); pos [R] page-aligned offsets
+    and last_idx [R] each row's last REAL position in its window (int
+    tensors).  Per-row math is :func:`forward_paged_prefill_chunk`'s (the
+    one body, :func:`_paged_prefill_rows`).  Live rows target distinct
+    slots, so their page writes never collide; the caller keeps
+    ``pos + W <= max_seq``.  Returns (logits [R, vocab] f32 at each row's
+    ``last_idx``, pools)."""
+    r, s = tokens.shape
+    page = _kv_leaf(_pool_stripes(pools, mesh)[0][0]).shape[3]
+    if s % page:
+        raise ValueError("prefill window must be page-aligned")
+    dev = tokens.device
+    x, pools = _paged_prefill_rows(params, tokens, cfg, pools, page_rows,
+                                   pos.to(dev).long(), mesh=mesh)
+    xl = x[torch.arange(r, device=dev), last_idx.to(dev).long()]
+    return _head_mm(xl, params["lm_head"]), pools
 
 
 def forward_paged_prefill(params, tokens, cfg: ModelConfig, pools,

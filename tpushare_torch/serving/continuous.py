@@ -261,10 +261,17 @@ class ContinuousBatcher:
             self.cfg, self.n_slots, rolling=self.rolling_slots,
             device=self.device)
 
-    def _reserve(self, slot: int, prompt_len: int, max_new: int) -> bool:
-        """Claim per-request storage; False = backpressure.  A dense row
-        is reserved with its slot."""
+    def _reserve(self, slot: int, prompt_len: int, max_new: int,
+                 prompt: Optional[List[int]] = None) -> bool:
+        """Claim per-request storage; False = backpressure.  ``prompt``
+        rides along for a storage that can share it (the paged prefix
+        cache).  A dense row is reserved with its slot."""
         return True
+
+    def _prefill_start(self, slot: int) -> int:
+        """The first prompt position admission must prefill: a cached
+        prefix's length on the paged prefix cache, else 0."""
+        return 0
 
     def _release(self, slot: int) -> None:
         """Return per-request storage on completion."""
@@ -323,6 +330,11 @@ class ContinuousBatcher:
                            t(block["p_slots"][act]), self.caches, self.cfg,
                            bound)
 
+    def _mixed_chunk_len(self, chunk: int) -> int:
+        """The mixed round's fixed prefill-window width on this storage
+        (the paged pool rounds it to a page multiple)."""
+        return max(1, chunk)
+
     def storage_info(self) -> dict:
         """What a slot costs and how many a GiB buys, through
         ``ops.quant.kv_cache_bytes``.  The read is ``cached_attention``
@@ -374,7 +386,8 @@ class ContinuousBatcher:
         if not free:
             return None
         slot = free[0]
-        if not self._reserve(slot, len(prompt), max_new_tokens):
+        if not self._reserve(slot, len(prompt), max_new_tokens,
+                             prompt=prompt):
             return None
         return slot
 
@@ -414,7 +427,8 @@ class ContinuousBatcher:
         rid = self._next_id
         self._next_id += 1
         self.prefilling[slot] = _Prefill(
-            request_id=rid, prompt=list(prompt), pos=0,
+            request_id=rid, prompt=list(prompt),
+            pos=self._prefill_start(slot),
             max_new=max_new_tokens, temperature=temperature, seed=seed,
             chunk=chunk, eos_id=eos_id, top_k=top_k, top_p=top_p)
         return rid
@@ -449,9 +463,10 @@ class ContinuousBatcher:
             self._finish(slot)
 
     def _finish(self, slot: int) -> None:
+        # storage first: the paged prefix cache reads the finished slot
+        self._release(slot)
         s = self.slots.pop(slot)
         self.completed[s.request_id] = s.output
-        self._release(slot)
 
     # -- chunked prefill ---------------------------------------------------
     def _select_prefill_slots(self, limit: int,
@@ -592,7 +607,7 @@ class ContinuousBatcher:
         [1, n_slots]).  Returns (block or None, overflow): None when no
         pending window fits below max_seq; ``overflow`` are the slots
         whose next window would cross it."""
-        c = max(1, chunk)
+        c = self._mixed_chunk_len(chunk)
         r_rows = max(1, min(budget // c if budget >= c else 1, self.n_slots))
         limit = self.cfg.max_seq
         eligible = [i for i, st in self.prefilling.items()
@@ -702,37 +717,80 @@ class ContinuousService:
     """Thread-safe front end over a batcher: ``submit`` returns a queue
     that delivers the finished token list (None on shutdown, the
     exception if the loop failed); one loop thread admits waiting
-    requests as slots free and ticks while work exists.  ``page_size``
-    > 0 serves from the paged pool, 0 from the dense slot storage
-    (rolling rows for a sliding-window config)."""
+    requests as slots free and runs rounds while work exists.
+    ``page_size`` > 0 serves from the paged pool, 0 from the dense slot
+    storage (rolling rows for a sliding-window config).
+
+    Every storage runs the reference's loop: admission streams a prompt
+    ``prefill_chunk`` tokens at a time (``admit_chunked``; the paged pool
+    rounds the chunk to a page multiple).  While anything prefills, a
+    round is one MIXED step (``tick_mixed``: the pending chunks of up to
+    ``prefill_budget // prefill_chunk`` slots as one prefill forward,
+    then ``prefill_decode_chunk`` fused decode steps), or with
+    ``mixed_step=False`` the sequential ``advance_prefill`` then
+    ``tick_fused`` (the same streams); otherwise ``decode_chunk`` fused
+    steps (``tick_fused``; 1 is single ``tick``s).  The defaults are the
+    reference's."""
 
     def __init__(self, params, cfg: transformer.ModelConfig, n_slots: int,
                  page_size: int = 16,
                  n_pages: Optional[int] = None, device=None,
-                 pool_bytes: Optional[int] = None, mesh=None):
+                 pool_bytes: Optional[int] = None, mesh=None,
+                 prefill_chunk: int = 64, decode_chunk: int = 8,
+                 prefill_decode_chunk: Optional[int] = None,
+                 mixed_step: bool = True,
+                 prefill_budget: Optional[int] = None,
+                 prefix_cache: bool = False):
         from .paged import PagedContinuousBatcher
 
         self.mesh = mesh
+        self._prefill_chunk = max(1, prefill_chunk)
+        self._decode_chunk = max(1, decode_chunk)
+        self._prefill_decode_chunk = max(
+            1, prefill_decode_chunk if prefill_decode_chunk is not None
+            else self._decode_chunk)
+        self._mixed_step = bool(mixed_step)
+        self._prefill_budget = (int(prefill_budget)
+                                if prefill_budget is not None
+                                else 2 * self._prefill_chunk)
         if page_size > 0:
             self._batcher = PagedContinuousBatcher(
                 params, cfg, n_slots, page_size=page_size, n_pages=n_pages,
-                device=device, pool_bytes=pool_bytes, mesh=mesh)
+                device=device, pool_bytes=pool_bytes, mesh=mesh,
+                max_prefill_chunk=self._prefill_chunk,
+                prefix_cache=prefix_cache)
         else:
             if n_pages or pool_bytes:
                 raise ValueError("n_pages and pool_bytes size a paged pool; "
                                  "pass page_size too")
+            if prefix_cache:
+                raise ValueError("prefix_cache is a paged-pool feature; "
+                                 "pass page_size too")
             self._batcher = ContinuousBatcher(params, cfg, n_slots,
                                               device=device, mesh=mesh)
+        # a request's first token comes when its slot activates (the
+        # prompt's last chunk prefilled, the first token sampled), rounds
+        # after its admission: the hook stamps it there
+        activate = self._batcher._activate
+
+        def timed_activate(slot, rid, *rest):
+            self._inflight[rid].first_token = time.perf_counter()
+            return activate(slot, rid, *rest)
+
+        self._batcher._activate = timed_activate
         self._lock = threading.Lock()
         self._waiting: "collections.deque[_Request]" = collections.deque()
         self._inflight: Dict[int, _Request] = {}      # loop thread only
         self._work = threading.Event()
         self._halt = threading.Event()
         self.failure: Optional[BaseException] = None
-        #: per finished request: seconds to its first token (prefill and
-        #: first sample done) and to its last, and its generated tokens
+        #: per finished request: seconds to its first token (its slot
+        #: activated: the prompt prefilled and the first token sampled)
+        #: and to its last, and its generated tokens
         self.timings: "collections.deque[dict]" = collections.deque(
             maxlen=1024)
+        #: rounds the loop has run (mixed, sequential or decode-only)
+        self.rounds = 0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tpushare-torch-service")
 
@@ -778,27 +836,32 @@ class ContinuousService:
         with self._lock:
             queued = len(self._waiting)
         b = self._batcher
-        return {"slots": b.n_slots, "active": len(b.slots), "queued": queued,
-                "prefills": b.prefills, "decode_steps": b.decode_steps}
+        return {"slots": b.n_slots, "active": len(b.slots),
+                "prefilling": len(b.prefilling), "queued": queued,
+                "rounds": self.rounds, "prefills": b.prefills,
+                "decode_steps": b.decode_steps}
 
     def storage_info(self) -> dict:
         return self._batcher.storage_info()
 
     def _admit_waiting(self) -> None:
+        """Admit queued requests by ``admit_chunked`` while slots and
+        storage allow; a refused one goes back to the FRONT of the
+        queue."""
         b = self._batcher
         while b.free_slots():
             with self._lock:
                 if not self._waiting:
                     return
                 req = self._waiting.popleft()
-            rid = b.admit(req.prompt, req.max_new, temperature=req.temperature,
-                          seed=req.seed, eos_id=req.eos_id, top_k=req.top_k,
-                          top_p=req.top_p)
+            rid = b.admit_chunked(
+                req.prompt, req.max_new, temperature=req.temperature,
+                seed=req.seed, chunk=self._prefill_chunk, eos_id=req.eos_id,
+                top_k=req.top_k, top_p=req.top_p)
             if rid is None:                     # storage backpressure
                 with self._lock:
                     self._waiting.appendleft(req)
                 return
-            req.first_token = time.perf_counter()
             self._inflight[rid] = req
 
     def _deliver(self) -> None:
@@ -813,6 +876,26 @@ class ContinuousService:
                 "new_tokens": len(out) - len(req.prompt)})
             req.sink.put_nowait(out)
 
+    def _round(self) -> None:
+        """One round of the reference's loop (see the class docstring)."""
+        b = self._batcher
+        if b.prefilling:
+            if self._mixed_step:
+                b.tick_mixed(self._prefill_decode_chunk,
+                             chunk=self._prefill_chunk,
+                             budget=self._prefill_budget)
+            else:
+                b.advance_prefill()
+                if self._prefill_decode_chunk > 1:
+                    b.tick_fused(self._prefill_decode_chunk)
+                else:
+                    b.tick()
+        elif self._decode_chunk > 1:
+            b.tick_fused(self._decode_chunk)
+        else:
+            b.tick()
+        self.rounds += 1
+
     def _loop(self) -> None:
         b = self._batcher
         while not self._halt.is_set():
@@ -820,8 +903,8 @@ class ContinuousService:
                 continue
             try:
                 self._admit_waiting()
-                self._deliver()
-                b.tick()
+                if b.prefilling or b.slots:
+                    self._round()
                 self._deliver()
             except Exception as e:     # keep the server answering
                 log.exception("service loop failed")
@@ -835,5 +918,5 @@ class ContinuousService:
                     req.sink.put_nowait(e)
                 return
             with self._lock:
-                if not self._waiting and not b.slots:
+                if not self._waiting and not b.slots and not b.prefilling:
                     self._work.clear()

@@ -26,6 +26,12 @@ plain PyTorch.  ``/score`` runs the no-cache forward through K1.  ``--int8``/``-
 int8 stores (K2's int8 entry point); ``--kv-pool-bytes`` sizes the pool
 by bytes; ``--sp N`` stripes every sequence's pages over N cards (K2's
 striped variant per stripe, merged; ``/score`` then answers 400).
+The slot pool streams each prompt in 64-token chunks and, while any
+prompt prefills, runs mixed rounds (one prefill forward for the pending
+chunks of up to ``--prefill-budget`` tokens, then 8 fused decode steps);
+``--sequential-prefill`` runs the reference's sequential interleave
+instead.  ``--prefix-cache`` maps a completed request's prompt-head
+pages into later requests that share it (paged pool, full causal).
 Start-up (:func:`start_server`) follows the device plugin's contract as a
 pod does: fail fast on a placement failure, then cap the CUDA allocator
 at the granted fraction, then build the model.
@@ -55,6 +61,7 @@ from ..runtime import contract
 log = logging.getLogger("tpushare_torch.llm")
 
 MODELS = {
+    "llama2-7b": transformer.llama2_7b,
     "llama3-8b": transformer.llama3_8b,
     "mistral-7b": transformer.mistral_7b,
     "flagship-small": transformer.flagship_small,
@@ -97,13 +104,20 @@ class LLMServer:
                  addr: str = "127.0.0.1", n_slots: int = 8,
                  page_size: int = 16, n_pages: int = 0,
                  default_max_new: int = 32, device=None,
-                 pool_bytes: Optional[int] = None, sp: int = 0):
+                 pool_bytes: Optional[int] = None, sp: int = 0,
+                 prefix_cache: bool = False, prefill_budget: int = 0,
+                 mixed_step: bool = True):
         """``n_slots`` > 0 serves through a ``ContinuousService``: over a
         paged pool with ``page_size`` > 0, over dense slot rows with
         ``page_size`` 0; ``n_slots`` 0 serves each ``/generate`` through
         ``generate_fused``.  ``sp`` > 1 stripes every sequence's KV pages
         over that many shards of a mesh (``make_mesh({"sp": sp})``): over
-        the visible cards, or on the CPU over ``device`` repeated."""
+        the visible cards, or on the CPU over ``device`` repeated.
+        ``prefill_budget`` caps the prompt tokens one mixed service round
+        coalesces into its prefill block (0 = two prefill chunks);
+        ``mixed_step=False`` runs the sequential advance-then-fuse
+        rounds instead; ``prefix_cache`` maps a registered prompt head's
+        pages into later requests (paged pool, full-causal models)."""
         from .continuous import ContinuousService
 
         self.device = default_device(device)
@@ -117,6 +131,12 @@ class LLMServer:
         if (n_pages or pool_bytes) and (n_slots <= 0 or page_size <= 0):
             raise ValueError("n_pages and pool_bytes size the paged pool: "
                              "they need n_slots > 0 and page_size > 0")
+        if prefix_cache and (n_slots <= 0 or page_size <= 0):
+            raise ValueError("prefix_cache requires n_slots > 0 and "
+                             "page_size > 0")
+        if (prefill_budget or not mixed_step) and n_slots <= 0:
+            raise ValueError("prefill_budget and mixed_step shape the "
+                             "slot pool's rounds: they need n_slots > 0")
         mesh = None
         if sp > 1:
             mesh = make_mesh({"sp": sp}, devices=(
@@ -138,7 +158,9 @@ class LLMServer:
                 params, cfg, n_slots, page_size=page_size,
                 n_pages=n_pages or None,
                 device=self.device if mesh is None else None,
-                pool_bytes=pool_bytes, mesh=mesh).start()
+                pool_bytes=pool_bytes, mesh=mesh,
+                prefix_cache=prefix_cache, mixed_step=mixed_step,
+                prefill_budget=prefill_budget or None).start()
         self._routes = {("POST", "/generate"): self._generate,
                         ("POST", "/score"): self._score,
                         ("GET", "/healthz"): self._healthz,
@@ -428,12 +450,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "cards (one stripe a visible card), multiplying "
                          "per-sequence max context and KV memory by it; "
                          "/score is refused under it")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse completed requests' prompt-prefix KV "
+                         "pages for same-prefix admissions (requires "
+                         "--page-size; full-causal models)")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="prompt tokens one mixed service round may "
+                         "coalesce into its one prefill forward (0 = "
+                         "two prefill chunks; requires --slots)")
+    ap.add_argument("--sequential-prefill", action="store_true",
+                    help="disable the mixed prefill+decode round: one "
+                         "prefill forward per prefilling slot, then the "
+                         "fused decode steps (the reference interleave; "
+                         "requires --slots)")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--addr", default="127.0.0.1")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "plain PyTorch paths)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.prefill_budget and not args.slots:
+        ap.error("--prefill-budget requires --slots")
+    if args.sequential_prefill and not args.slots:
+        ap.error("--sequential-prefill requires --slots")
+    if args.prefix_cache and not (args.slots and args.page_size):
+        ap.error("--prefix-cache requires --slots and --page-size")
+    return args
 
 
 def start_server(args: argparse.Namespace, env=None) -> LLMServer:
@@ -457,7 +499,10 @@ def start_server(args: argparse.Namespace, env=None) -> LLMServer:
     srv = LLMServer(cfg, params, port=args.port, addr=args.addr,
                     n_slots=args.slots, page_size=args.page_size,
                     n_pages=args.kv_pages, device=device,
-                    pool_bytes=args.kv_pool_bytes or None, sp=args.sp)
+                    pool_bytes=args.kv_pool_bytes or None, sp=args.sp,
+                    prefix_cache=args.prefix_cache,
+                    prefill_budget=args.prefill_budget,
+                    mixed_step=not args.sequential_prefill)
     log.info("llm server: model=%s weights=%s kv_dtype=%s attn_kernel=%s "
              "device=%s on %s:%d", args.model,
              "int8" if args.int8 else "int4" if args.int4 else "bf16",

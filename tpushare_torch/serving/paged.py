@@ -26,8 +26,8 @@ from stripe ``j % sp``: one sequence's pages, and so its context, span
 every stripe.  Capacity is checked per stripe.  Full-causal configs only,
 as in the JAX package.
 
-Prefill runs through ``forward_paged_prefill`` and each tick through
-``forward_paged_decode``; both read the pool through K2 when
+Prefill runs through ``forward_paged_prefill`` and each decode step
+through ``forward_paged_decode``; both read the pool through K2 when
 ``cfg.attn_kernel == "kernel"``.  A windowed prompt longer than its ring
 prefills in windows of ``max_prefill_chunk`` tokens through
 ``forward_paged_prefill_chunk`` (a whole-prompt walk would write a ring
@@ -36,14 +36,24 @@ older than what its first query may attend.  ``cfg.kv_dtype="int8"``
 keeps the pool as int8 ``{"q","s"}`` stores, read through K2's int8
 entry point; every byte of the pool is priced by
 ``ops.quant.kv_cache_bytes``, so a ``pool_bytes`` budget buys about twice
-the pages under int8.  The prefix cache, and the paged twins of chunked
-admission and of the fused and mixed rounds (``admit_chunked``,
-``tick_fused``, ``tick_mixed``, which refuse here), wait for later
-slices.
+the pages under int8.
+
+The rounds of the base class run on the pool: ``admit_chunked`` streams a
+prompt in page-multiple windows (``forward_paged_prefill_chunk``),
+``tick_fused`` runs n decode steps over one page table fixed for the
+round (a reservation is worst case, so no slot needs a page mid-round),
+and ``tick_mixed`` runs the pending windows of several slots as one
+``forward_paged_prefill_batch`` (K2's S > 1 arm once a layer for all
+rows; a padded row rides an all-zero table onto the trash page) before
+the fused steps.  A prefix cache (``prefix_cache=True``, full causal)
+maps a registered prompt head's pages into later requests, which
+prefill only past it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -55,17 +65,43 @@ from ..ops.quant import kv_cache_bytes
 from .continuous import ContinuousBatcher, _sample_next
 
 
+@dataclasses.dataclass
+class _CachedPrefix:
+    """A registered prompt prefix whose K/V pages live in the pool.
+
+    ``pages`` belong to the REGISTRY, not to a slot: admitted requests map
+    them read-only into their page tables and bump ``active``; nothing
+    writes a registered page (every prefill, decode and garbage write of
+    a mapping slot starts at or past the shared region).  Evictable only
+    at ``active == 0``."""
+
+    tokens: tuple          # the full-page prefix, exactly
+    pages: list            # physical pages, in position order
+    active: int = 0        # slots currently mapping these pages
+    last_used: float = 0.0
+
+
 class PagedContinuousBatcher(ContinuousBatcher):
     """The batcher with its storage hooks on a paged pool.  The pool holds
     ``n_pages`` pages, or as many as ``pool_bytes`` buys (trash pages
-    included); by default every slot can hold a full max_seq sequence."""
+    included); by default every slot can hold a full max_seq sequence.
+
+    ``prefix_cache`` (full-causal configs only): a completed request
+    donates its prompt's whole pages to a registry, and a later request
+    whose prompt starts with a registered prefix maps those pages into
+    its table and prefills only the rest.  Exact: a position's K/V
+    depends only on its causal prefix.  The registry holds at most two
+    slots' worth of pages, evicted least recently used at zero active."""
 
     def __init__(self, params, cfg: transformer.ModelConfig, n_slots: int,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  device=None, pool_bytes: Optional[int] = None, mesh=None,
-                 max_prefill_chunk: int = 64):
+                 max_prefill_chunk: int = 64, prefix_cache: bool = False):
         if cfg.max_seq % page_size:
             raise ValueError("max_seq must be a multiple of page_size")
+        if prefix_cache and transformer.wants_rolling(cfg):
+            raise ValueError("prefix_cache requires a full-causal config "
+                             "(the windowed page ring recycles pages)")
         self.sp_shards = sp = tp_degree(mesh, "sp")
         if sp > 1 and transformer.wants_rolling(cfg):
             raise ValueError("position striping (sp mesh axis) requires a "
@@ -83,6 +119,13 @@ class PagedContinuousBatcher(ContinuousBatcher):
         # it sizes the windowed page ring's margin
         self.max_prefill_chunk = max(
             page_size, -(-max_prefill_chunk // page_size) * page_size)
+        self.prefix_cache_enabled = bool(prefix_cache)
+        self._prefixes: Dict[tuple, _CachedPrefix] = {}
+        self._slot_prefix: Dict[int, tuple] = {}   # slot -> registry key
+        self._slot_shared: Dict[int, int] = {}     # slot -> shared tokens
+        #: the registry's budget: at most this many pages parked on
+        #: cached prefixes
+        self.max_cached_pages = 2 * self.pages_per_slot
         # default: every slot can hold a full max_seq sequence, + a trash
         # page per stripe; an explicit count rounds UP to equal stripes
         self.n_pages = (n_pages if n_pages is not None
@@ -134,21 +177,32 @@ class PagedContinuousBatcher(ContinuousBatcher):
                 f"request needs {need} pages but the pool holds only "
                 f"{self.n_pages - 1} usable pages")
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{what} on the paged pool is not ported yet (ROADMAP A.2: the "
-            f"paged twins of chunked admission and the fused and mixed "
-            f"rounds); the dense slot storage has it")
+    def admit_chunked(self, prompt: List[int], max_new_tokens: int,
+                      temperature: float = 0.0, seed: int = 0,
+                      chunk: int = 64, eos_id: Optional[int] = None,
+                      top_k: int = 0, top_p: float = 1.0) -> Optional[int]:
+        """Chunked admission with the window rounded UP to a page multiple
+        (paged writes are whole pages: ``pos`` stays a page multiple, and
+        so does the max_seq clamp), and on a windowed ring clamped to
+        ``max_prefill_chunk``, the chunk its margin is sized for.  A chunk
+        below 1 raises in the base class."""
+        if chunk >= 1:
+            chunk = -(-chunk // self.page_size) * self.page_size
+            if transformer.wants_rolling(self.cfg):
+                chunk = min(chunk, self.max_prefill_chunk)
+        return super().admit_chunked(prompt, max_new_tokens,
+                                     temperature=temperature, seed=seed,
+                                     chunk=chunk, eos_id=eos_id,
+                                     top_k=top_k, top_p=top_p)
 
-    def admit_chunked(self, *args, **kwargs):
-        self._not_ported("admit_chunked")
-
-    def tick_fused(self, n_steps: int) -> int:
-        self._not_ported("tick_fused")
-
-    def tick_mixed(self, n_steps: int, chunk: int = 64,
-                   budget: int = 128) -> int:
-        self._not_ported("tick_mixed")
+    def _mixed_chunk_len(self, chunk: int) -> int:
+        """The mixed round's window: rounded UP to a page multiple and, on
+        a windowed ring, clamped into its prefill margin (the rounding
+        :meth:`admit_chunked` applies)."""
+        c = -(-max(1, chunk) // self.page_size) * self.page_size
+        if transformer.wants_rolling(self.cfg):
+            c = min(c, self.max_prefill_chunk)
+        return max(self.page_size, c)
 
     def storage_info(self) -> dict:
         cfg = self.cfg
@@ -163,7 +217,13 @@ class PagedContinuousBatcher(ContinuousBatcher):
                 "pool_bytes": pool_bytes,
                 # the stripes one sequence's pages span, and what each
                 # stripe's device holds
-                "sp_shards": sp, "pool_bytes_per_shard": pool_bytes // sp}
+                "sp_shards": sp, "pool_bytes_per_shard": pool_bytes // sp,
+                # the prefix registry: its prefixes, the pages they hold
+                # (out of every slot's reach until evicted) and its budget
+                "prefix_cache": self.prefix_cache_enabled,
+                "cached_prefixes": len(self._prefixes),
+                "cached_pages": self._cached_pages(),
+                "max_cached_pages": self.max_cached_pages}
         if sp > 1:
             # the f32 (out, m, l) partials each stripe hands the merge per
             # layer of a decode step, counted as the JAX package counts
@@ -208,25 +268,128 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return any(n > len(self._free_by_stripe[s])
                    for s, n in enumerate(need))
 
-    def _reserve(self, slot: int, prompt_len: int, max_new: int) -> bool:
+    # -- the prefix registry -------------------------------------------
+    def _cached_pages(self) -> int:
+        return sum(len(e.pages) for e in self._prefixes.values())
+
+    def _lookup_prefix(self, prompt) -> Optional[_CachedPrefix]:
+        """The longest registered prefix this prompt starts with, capped
+        one token short of it (admission must still prefill a position to
+        produce the first logits)."""
+        if not self.prefix_cache_enabled or prompt is None:
+            return None
+        usable = (len(prompt) - 1) // self.page_size * self.page_size
+        best = None
+        for entry in self._prefixes.values():
+            n = len(entry.tokens)
+            if (n <= usable and tuple(prompt[:n]) == entry.tokens
+                    and (best is None or n > len(best.tokens))):
+                best = entry
+        return best
+
+    def _evict_prefixes(self, need, registry_room: int = 0) -> None:
+        """Free least-recently-used zero-active prefixes until the stripes
+        hold ``need`` free pages (a count a stripe) and ``registry_room``
+        more cached pages fit the budget, or nothing idle is left.  A
+        matched prefix bumps ``active`` before this runs, so it is never
+        its own victim."""
+        def over():
+            return (self._stripes_short(need) or self._cached_pages()
+                    + registry_room > self.max_cached_pages)
+
+        while over():
+            idle = [e for e in self._prefixes.values() if e.active == 0]
+            if not idle:
+                return
+            victim = min(idle, key=lambda e: e.last_used)
+            del self._prefixes[victim.tokens]
+            self._free_pages_return(victim.pages)
+
+    def _reserve(self, slot: int, prompt_len: int, max_new: int,
+                 prompt: Optional[List[int]] = None) -> bool:
         n_ranges = -(-(prompt_len + max_new) // self.page_size)
         held = self._held_pages(prompt_len, max_new)
-        if self._stripes_short(self._stripe_need(range(held))):
+        shared = (self._lookup_prefix(prompt) if held == n_ranges
+                  else None)
+        n_shared = len(shared.pages) if shared is not None else 0
+        if shared is not None:
+            # claimed BEFORE any eviction: it must not be its own victim
+            shared.active += 1
+            shared.last_used = time.monotonic()
+        # range j draws from stripe j % sp (one list unstriped); a
+        # windowed ring (never striped) holds `held` pages for every range
+        own = (range(n_shared, n_ranges) if held == n_ranges
+               else range(held))
+        need = self._stripe_need(own)
+        if self._stripes_short(need):
+            self._evict_prefixes(need)
+        if self._stripes_short(need):
+            if shared is not None:
+                shared.active -= 1      # the claim rolled back
             return False                # page backpressure
         self.page_table[slot, :] = 0
-        # page j from stripe j % sp (unstriped: the one list, popped in the
-        # JAX batcher's order); range j maps to pages[j % held], which a
-        # windowed ring (never striped) recycles for the request's life
+        # popped in the JAX batcher's order
         pages = [self._free_by_stripe[j % self.sp_shards].pop()
-                 for j in range(held)]
-        self.page_table[slot, :n_ranges] = [pages[j % held]
-                                             for j in range(n_ranges)]
+                 for j in own]
+        if held == n_ranges:
+            # full causal: range j on its own page; a cached prefix's
+            # registry pages map read-only over the shared head
+            self.page_table[slot, n_shared:n_ranges] = pages
+            if shared is not None:
+                self.page_table[slot, :n_shared] = shared.pages
+                self._slot_prefix[slot] = shared.tokens
+                self._slot_shared[slot] = n_shared * self.page_size
+        else:
+            # the windowed ring: range j on pages[j % held] for the
+            # request's life
+            self.page_table[slot, :n_ranges] = [pages[j % held]
+                                                 for j in range(n_ranges)]
         self._slot_pages[slot] = pages
         return True
 
+    def _prefill_start(self, slot: int) -> int:
+        return self._slot_shared.get(slot, 0)
+
     def _release(self, slot: int) -> None:
+        key = self._slot_prefix.pop(slot, None)
+        self._slot_shared.pop(slot, None)
+        if key is not None:
+            entry = self._prefixes.get(key)
+            if entry is not None:
+                entry.active -= 1
+                entry.last_used = time.monotonic()
+        elif self.prefix_cache_enabled:
+            self._maybe_register(slot)
         self.page_table[slot, :] = 0
         self._free_pages_return(self._slot_pages.pop(slot, []))
+
+    def _maybe_register(self, slot: int) -> None:
+        """Donate a finished request's pure-prompt whole pages to the
+        registry instead of freeing them.  Only a decoding slot donates
+        (a mid-prefill slot's pages are part garbage), only a prefix not
+        yet registered, and only pages holding nothing but prompt
+        positions (the page holding ``prompt_len`` has decode writes).
+        A slot that mapped a cached prefix only lets go of it."""
+        s = self.slots.get(slot)
+        if s is None or s.prompt_len <= 1:
+            return
+        k_pure = s.prompt_len // self.page_size
+        if k_pure < 1:
+            return
+        tokens = tuple(s.output[:k_pure * self.page_size])
+        if tokens in self._prefixes:
+            return
+        self._evict_prefixes([0] * self.sp_shards, registry_room=k_pure)
+        if self._cached_pages() + k_pure > self.max_cached_pages:
+            return                      # nothing idle to evict
+        donated = [int(p) for p in self.page_table[slot, :k_pure]]
+        own = self._slot_pages.get(slot, [])
+        if 0 in donated or len(own) < k_pure:
+            return                      # never donate the trash page
+        self._prefixes[tokens] = _CachedPrefix(
+            tokens=tokens, pages=donated, last_used=time.monotonic())
+        gone = set(donated)
+        self._slot_pages[slot] = [p for p in own if p not in gone]
 
     def _table(self, rows) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(rows)).to(self.device)
@@ -234,20 +397,23 @@ class PagedContinuousBatcher(ContinuousBatcher):
     def _prefill_into(self, slot: int, prompt: List[int]):
         table = self._table(self.page_table[slot])
         span = len(self._slot_pages[slot]) * self.page_size
-        if transformer.wants_rolling(self.cfg) and len(prompt) > span:
-            # the prompt outruns its ring: windows of a fixed width
-            # (max_prefill_chunk, or what is left of max_seq), each
-            # written and attended before the next
-            pos = 0
+        start = self._prefill_start(slot)
+        if start or (transformer.wants_rolling(self.cfg)
+                     and len(prompt) > span):
+            # the chunk body in windows of a fixed width (max_prefill_chunk,
+            # or what is left of max_seq), each written and attended before
+            # the next, when a cached prefix covers the prompt's head (a
+            # whole-prompt walk would rewrite the registry's pages) or the
+            # prompt outruns its windowed ring
+            pos = start
             while pos < len(prompt):
                 width = min(self.max_prefill_chunk, self.cfg.max_seq - pos)
                 piece = prompt[pos:pos + width]
                 tokens = torch.zeros((1, width), dtype=torch.long,
                                      device=self.device)
                 tokens[0, :len(piece)] = torch.tensor(piece)
-                logits_v, self.pools = transformer.forward_paged_prefill_chunk(
-                    self.params, tokens, self.cfg, self.pools, table, pos,
-                    len(piece) - 1, mesh=self.mesh)
+                logits_v = self._prefill_chunk_into(slot, tokens, pos,
+                                                    len(piece) - 1)
                 pos += len(piece)
                 if pos < len(prompt):
                     self.prefills += 1      # admit counts the last one
@@ -259,7 +425,82 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return logits[0]      # [V]: the prompt's last-position logits
 
     def _step(self, tokens, lengths, temps, generators, top_ks, top_ps):
-        logits, self.pools = transformer.forward_paged_decode(
-            self.params, tokens, self.cfg, self.pools,
-            self._table(self.page_table), lengths, mesh=self.mesh)
-        return _sample_next(logits[:, 0], temps, generators, top_ks, top_ps)
+        nxt, self.pools = _tick(self.params, tokens, self.pools,
+                                self._table(self.page_table), lengths, temps,
+                                generators, top_ks, top_ps, self.cfg,
+                                self.mesh)
+        return nxt
+
+    def _step_n(self, tokens, lengths, temps, generators, top_ks, top_ps,
+                incs, n_steps: int):
+        toks, self.pools = _decode_scan(
+            self.params, tokens, self.pools, self._table(self.page_table),
+            lengths, temps, generators, top_ks, top_ps, incs, self.cfg,
+            n_steps, self.mesh)
+        return toks
+
+    def _prefill_chunk_into(self, slot: int, padded_tokens, pos: int,
+                            last_idx: int):
+        logits_v, self.pools = transformer.forward_paged_prefill_chunk(
+            self.params, padded_tokens, self.cfg, self.pools,
+            self._table(self.page_table[slot]), pos, last_idx,
+            mesh=self.mesh)
+        return logits_v
+
+    def _prefill_tables(self, p_slots, p_active) -> np.ndarray:
+        """The page-table rows of a prefill block: a live row its slot's,
+        a padded row all zeros (every write on the masked trash page)."""
+        tables = np.zeros((len(p_slots), self.pages_per_slot), np.int32)
+        for r in np.flatnonzero(p_active):
+            tables[r] = self.page_table[p_slots[r]]
+        return tables
+
+    def _prefill_block(self, block) -> torch.Tensor:
+        """The prefill half of a mixed round: the block's rows through
+        ``forward_paged_prefill_batch``; returns the chunk-final logits
+        [R, V]."""
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+
+        tables = self._prefill_tables(block["p_slots"], block["p_active"])
+        logits, self.pools = transformer.forward_paged_prefill_batch(
+            self.params, t(block["p_tokens"]).long(), self.cfg, self.pools,
+            self._table(tables), t(block["p_pos"]), t(block["p_last"]),
+            mesh=self.mesh)
+        return logits
+
+
+# ---------------------------------------------------------------------------
+# The paged pool's decode programs (the reference's ``_tick`` and
+# ``_decode_scan``; plain functions, as in ``continuous``)
+# ---------------------------------------------------------------------------
+@torch.inference_mode()
+def _tick(params, tokens, pools, table, lengths, temps, generators, tks,
+          tps, cfg, mesh):
+    """Every slot one token through the pool: tokens [B, 1] at ``lengths``
+    [B]; returns (the next tokens [B], pools)."""
+    logits, pools = transformer.forward_paged_decode(
+        params, tokens, cfg, pools, table, lengths, mesh=mesh)
+    return _sample_next(logits[:, 0], temps, generators, tks, tps), pools
+
+
+@torch.inference_mode()
+def _decode_scan(params, tokens, pools, table, lengths, temps, generators,
+                 tks, tps, incs, cfg, n: int, mesh):
+    """``n`` decode steps of :func:`_tick` over ONE page table, fixed for
+    the round (a reservation is worst-case at admission, so no slot needs
+    a new page mid-round); returns (tokens [B, n], pools).  ``incs`` [B]
+    freezes the rows that are not decoding at their aimed garbage
+    position: on a windowed page ring a wandering write at q would
+    recycle the lane of q - held * page, still inside a mid-prefill row's
+    window."""
+    out = []
+    for _ in range(n):
+        nxt, pools = _tick(params, tokens, pools, table, lengths, temps,
+                           generators, tks, tps, cfg, mesh)
+        tokens = nxt[:, None]
+        out.append(tokens)
+        lengths = lengths + incs
+    return torch.cat(out, dim=1), pools
