@@ -52,9 +52,17 @@ CUDA toolkit.  Phases, each printing one JSON line:
    SDPA's backward's (its own dO * O preprocess included), at S = 2048
    and S = 8192 (``tpushare_torch.profile_k1 --bwd``);
 6. the server: Llama-3-8B at full width and depth with random seeded
-   weights, an in-process ``LLMServer`` (8 slots, pages of 16), four
-   concurrent ``/generate`` requests and one 2048-token ``/score``; the
-   kernels' launch counters are zeroed just before and read just after;
+   weights, an in-process ``LLMServer`` (8 slots, pages of 16; its
+   service streams prompts in 64-token windows through mixed rounds of
+   a 128-token prefill budget and 8 decode steps), four concurrent
+   ``/generate`` requests and one 2048-token ``/score``; the kernels'
+   launch counters are zeroed just before and read just after; then the
+   ``mixed`` check: the greedy prompts on a paged pool through
+   ``admit_chunked(chunk=64)`` and ``tick_mixed(8, chunk=64,
+   budget=128)`` against ``admit`` and ``tick``, their first-step and
+   first decode-step logits within LOGIT_TOL or 1.25x the pool's own
+   K2-against-gather distance, and on the weights widened to f32 through
+   the gather read within F32_LOGIT_TOL;
 7. agreement: ``flagship-small`` in bf16, the K2 read path against the
    gather path, in f32 and in bf16 (first-step logits and greedy
    streams), and the no-cache forward through K1 against the gather
@@ -97,7 +105,18 @@ CUDA toolkit.  Phases, each printing one JSON line:
     the unstriped K2 never); first-step logits of the greedy prompts
     against an unstriped pool of 700 pages on the same weights; a striped
     and an unstriped decode step's wall; then the same on int8 pools;
-12. grant: the server started as a pod is, by ``llm.start_server`` under
+12. prefix: Llama-2-7B at full width and depth (bf16 random weights,
+    32 heads over 32 kv heads: K2 at n_rep = 1) on
+    ``LLMServer(n_slots=8, page_size=16, prefix_cache=True)`` (8 x 256
+    pages + 1, 17.2 GB): a 1,024-token system prompt alone, then four
+    user turns of 64-256 tokens behind it (the first alone, three
+    concurrently), 32 new tokens each, and the same without the cache;
+    the registry holds one prefix of 64 pages, the turns prefill only
+    their own tokens, K2 in every paged layer; the turns' first-step
+    logits with the cache against without it (bf16 within LOGIT_TOL or
+    1.25x the K2-against-gather distance, f32 through the gather read
+    within F32_LOGIT_TOL); the turns' TTFT both ways;
+13. grant: the server started as a pod is, by ``llm.start_server`` under
     the device plugin's env for a 14 GiB pod on an 80-unit card (the
     allocator capped at the fraction 0.175 before anything is built),
     Llama-3-8B at full width and depth with int8 weights (built one layer
@@ -105,7 +124,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     checks the int8 K2 in every layer of every paged forward (the bf16
     one never), the peak reserved memory inside the grant, and an
     allocation past the grant refused; then the fraction goes back to 1;
-13. train, last, after the serving memory is freed: ``Trainer`` on
+14. train, last, after the serving memory is freed: ``Trainer`` on
     Llama-3-8B at full width and depth (random seeded weights, AdamW,
     ``remat="layer"``, ``head_chunk=512``, lr 3e-4), four steps on one
     seeded [1, 2049] batch; the counters are zeroed just before and read
@@ -746,6 +765,7 @@ def _drive_server(port: int, cfg) -> dict:
     return {"generate_wall_s": gen_wall,
             "tokens_per_s": 32 * len(reqs) / gen_wall,
             "ttft_s": stats["ttft_s"], "score_s": score_s,
+            "rounds": b["rounds"], "prefill_tokens": b["prefill_tokens"],
             "prefills": b["prefills"], "decode_steps": b["decode_steps"],
             "forwards": b["prefills"] + b["decode_steps"],
             "launches": launches, "kv_storage": stats["kv_storage"],
@@ -771,6 +791,9 @@ def _check_k2_arms(res, kind: str, n_layers: int) -> None:
 
 
 def phase_server(torch, card: str):
+    """The serving load on an ``LLMServer`` over the paged pool (its
+    service loop on mixed rounds), then the ``mixed`` check
+    (:func:`_mixed_check`) on the same weights."""
     from tpushare_torch.models.transformer import param_count
     from tpushare_torch.serving.llm import LLMServer, build_model
 
@@ -785,12 +808,160 @@ def phase_server(torch, card: str):
         res = _drive_server(srv.port, cfg)
     finally:
         srv.stop()
+    del srv
     _check_k2_arms(res, "", cfg.n_layers)
     res.update({"model": "llama3-8b", "card": card,
                 "params_b": param_count(params) / 1e9, "init_s": init_s,
                 "kv_pool_bytes": res.pop("kv_storage")["pool_bytes"],
                 "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["mixed"] = _mixed_check(torch, params, cfg)
     return res
+
+
+#: the mixed rounds the service runs by default: 64-token windows, a
+#: prefill budget of two windows, 8 decode steps a round
+MIXED_CHUNK = 64
+MIXED_STEPS = 8
+
+
+def _served_steps(b, prompts, max_new: int, chunk=None, tokens=None):
+    """Greedy ``prompts`` through batcher ``b``: admitted together by
+    ``admit`` and drained by ``tick`` (``chunk`` None), or by
+    ``admit_chunked(chunk=)`` and drained by ``tick_mixed(8, chunk=,
+    budget=2 * chunk)``.  Returns (the streams' new tokens, each prompt's
+    first-step logits, taken where its slot activates, and its first
+    decode step's logits, read from the sampler, as f32, and the mixed
+    rounds run).  ``tokens[i]``, where given, replaces prompt i's first
+    token, so that every batcher compared decodes the same one."""
+    base = b._next_id
+    firsts, steps, pending = {}, {}, {}
+    activate = b._activate
+
+    def capture(slot, rid, prompt, logits_v, *rest):
+        firsts[rid] = logits_v.float().clone()
+        activate(slot, rid, prompt, logits_v, *rest)
+        if slot in b.slots:
+            if tokens is not None:
+                s = b.slots[slot]
+                s.last_token = s.output[-1] = int(tokens[rid - base])
+            pending[slot] = rid
+
+    def on_step(logits):
+        for slot, rid in pending.items():
+            steps[rid] = logits[slot].float().clone()
+        pending.clear()
+
+    b._activate = capture
+    rounds = 0
+    try:
+        with _sampler_logits(on_step):
+            if chunk is None:
+                rids = [b.admit(p, max_new) for p in prompts]
+                check(None not in rids, "admission refused")
+                b.run_until_drained()
+            else:
+                rids = [b.admit_chunked(p, max_new, chunk=chunk)
+                        for p in prompts]
+                check(None not in rids, "chunked admission refused")
+                while b.prefilling or b.slots:
+                    b.tick_mixed(MIXED_STEPS, chunk=chunk, budget=2 * chunk)
+                    rounds += 1
+                    check(rounds < 1000, "the mixed rounds did not drain")
+    finally:
+        b._activate = activate
+    news = [b.completed[r][len(p):] for r, p in zip(rids, prompts)]
+    return (news, [firsts[r] for r in rids],
+            [steps.get(r) for r in rids], rounds)
+
+
+def _mixed_check(torch, params, cfg):
+    """The server load's four prompts (256/512/1000/2000 tokens, greedy)
+    on a paged pool of 8 slots through ``admit_chunked(chunk=64)`` and
+    ``tick_mixed(8, chunk=64, budget=128)`` against the same prompts
+    through ``admit`` and ``tick``.  On the K2 route (bf16): first-step
+    logits, and the first decode step's from the same first token,
+    within LOGIT_TOL or 1.25x the pool's own K2-against-gather distance
+    at those steps; 32 greedy tokens each, the first equal wherever the
+    reference's top two logits lie more than twice that apart (closer,
+    bf16 noise may swap them).  On the weights widened to f32 through the
+    gather read, 2 tokens each: both steps within F32_LOGIT_TOL and the
+    first tokens equal (a block row that reads a wrong page, or a frozen
+    row that wanders, fails there)."""
+    import dataclasses
+
+    from tpushare_torch.serving.paged import PagedContinuousBatcher
+
+    prompts, _ = _load_prompts(cfg)
+
+    def pool(p, c):
+        return PagedContinuousBatcher(p, c, n_slots=8, page_size=16,
+                                      n_pages=300, device="cuda")
+
+    t0 = time.perf_counter()
+    ref = _served_steps(pool(params, cfg), prompts, 32)
+    tick_s = time.perf_counter() - t0
+    first_tokens = [int(x.argmax()) for x in ref[1]]
+    t0 = time.perf_counter()
+    mix = _served_steps(pool(params, cfg), prompts, 32, chunk=MIXED_CHUNK,
+                        tokens=first_tokens)
+    mixed_s = time.perf_counter() - t0
+    gather = _served_steps(
+        pool(params, dataclasses.replace(cfg, attn_kernel="gather")),
+        prompts, 2, tokens=first_tokens)
+    noise = [(g - w).abs().max().item()
+             for g, w in zip(gather[1] + gather[2], ref[1] + ref[2])]
+    tol = max(LOGIT_TOL, 1.25 * max(noise))
+    errs = [(m - w).abs().max().item()
+            for m, w in zip(mix[1] + mix[2], ref[1] + ref[2])]
+    check(all(torch.isfinite(x).all().item() for x in mix[1] + mix[2]),
+          "mixed logits not finite")
+    check(max(errs) <= tol,
+          f"mixed first-step and decode-step logits {errs} from the ticked "
+          f"ones, past LOGIT_TOL and 1.25x the K2-against-gather distance "
+          f"{noise}")
+    margins = [float(x.topk(2).values[0] - x.topk(2).values[1])
+               for x in ref[1]]
+    natural = [int(x.argmax()) for x in mix[1]]
+    for i, (m, a, b) in enumerate(zip(margins, natural, first_tokens)):
+        check(m <= 2 * tol or a == b,
+              f"prompt {i}: mixed first token {a}, ticked {b}, their "
+              f"margin {m} past twice the tolerance {tol}")
+    agree = [sum(x == y for x, y in zip(a[1:], b[1:])) / (len(b) - 1)
+             for a, b in zip(mix[0], ref[0])]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    p32 = _widened(params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, attn_kernel="gather")
+    ref32 = _served_steps(pool(p32, c32), prompts, 2)
+    tokens32 = [int(x.argmax()) for x in ref32[1]]
+    mix32 = _served_steps(pool(p32, c32), prompts, 2, chunk=MIXED_CHUNK,
+                          tokens=tokens32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    err32 = [(m - w).abs().max().item()
+             for m, w in zip(mix32[1] + mix32[2], ref32[1] + ref32[2])]
+    check([int(x.argmax()) for x in mix32[1]] == tokens32,
+          "f32 mixed and ticked first tokens differ")
+    check(max(err32) <= F32_LOGIT_TOL,
+          f"f32 mixed first-step and decode-step logits {err32} from the "
+          f"ticked ones, past {F32_LOGIT_TOL}")
+    return {"chunk": MIXED_CHUNK, "budget": 2 * MIXED_CHUNK,
+            "decode_steps_a_round": MIXED_STEPS, "rounds": mix[3],
+            "ticked_wall_s": tick_s, "mixed_wall_s": mixed_s,
+            "first_logit_max_abs_err": errs[:4],
+            "step_logit_max_abs_err": errs[4:],
+            "kernel_vs_gather_max_abs_err": noise, "logit_tol": tol,
+            "first_token_margins": margins,
+            "first_tokens_equal": [a == b for a, b in
+                                   zip(natural, first_tokens)],
+            "later_token_agreement": agree,
+            "f32_first_logit_max_abs_err": err32[:4],
+            "f32_step_logit_max_abs_err": err32[4:],
+            "f32_rounds": mix32[3]}
 
 
 #: the device plugin's allocation env for a 14 GiB pod on an 80 GiB card
@@ -1391,15 +1562,19 @@ def _widened(params):
 
 
 @contextlib.contextmanager
-def _sampler_logits():
+def _sampler_logits(on_call=None):
     """The logits every decode step hands the batchers' sampler while the
-    block runs ([B, V], as f32 copies, in order)."""
+    block runs ([B, V], as f32 copies, in order), or each handed to
+    ``on_call`` instead."""
     from tpushare_torch.serving import continuous, paged
 
     seen, sample = [], continuous._sample_next
 
     def spy(logits, *rest):
-        seen.append(logits.float().clone())
+        if on_call is None:
+            seen.append(logits.float().clone())
+        else:
+            on_call(logits)
         return sample(logits, *rest)
 
     continuous._sample_next = paged._sample_next = spy
@@ -1564,6 +1739,8 @@ def phase_sp_stripe(torch, card: str):
                 "unstriped": _decode_step_ms(torch, ref, step_prompts)}
         ttfts = [t["ttft_s"] for t in timings]
         res[kv] = {"launches": launches, "forwards": forwards,
+                   "rounds": snap["rounds"],
+                   "prefill_tokens": snap["prefill_tokens"],
                    "prefills": snap["prefills"],
                    "decode_steps": snap["decode_steps"],
                    "generate_wall_s": wall,
@@ -1580,6 +1757,193 @@ def phase_sp_stripe(torch, card: str):
         del svc, b, ref
         gc.collect()
         torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the prefix phase's chat load: one 1,024-token system prompt (64
+#: pages of 16) heads every request, then a distinct user turn each
+PREFIX_SYSTEM = 1024
+PREFIX_TURNS = (64, 128, 192, 256)
+
+
+def _chat_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 17)
+    system = rng.integers(0, cfg.vocab, PREFIX_SYSTEM).tolist()
+    return system, [system + rng.integers(0, cfg.vocab, n).tolist()
+                    for n in PREFIX_TURNS]
+
+
+def _serve_chat(torch, cfg, params, prefix_cache: bool) -> dict:
+    """The chat load through an ``LLMServer(n_slots=8, page_size=16)``
+    over HTTP: the system prompt alone (32 new tokens; with the cache it
+    registers the prompt's 64 pages), then the first user turn alone and
+    the other three concurrently, 32 new tokens each.  The counters are
+    zeroed just before and read just after."""
+    from tpushare_torch.serving.llm import LLMServer, kernel_launches
+
+    system, turns = _chat_prompts(cfg)
+    srv = LLMServer(cfg, params, port=0, n_slots=8, page_size=16,
+                    device="cuda", prefix_cache=prefix_cache).start()
+    outs = [None] * len(turns)
+
+    def send(i):
+        try:
+            outs[i] = _post(srv.port, "/generate",
+                            {"tokens": [turns[i]], "max_new_tokens": 32})
+        except Exception as e:      # reported below
+            outs[i] = (None, repr(e))
+
+    try:
+        _zero_launch_counts()
+        code, body = _post(srv.port, "/generate",
+                           {"tokens": [system], "max_new_tokens": 32})
+        check(code == 200, f"the system prompt failed: {body}")
+        warm = srv._service.snapshot()
+        registry = srv._service.storage_info()
+        t0 = time.perf_counter()
+        send(0)
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(1, len(turns))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        snap = srv._service.snapshot()
+        ttfts = [t["ttft_s"] for t in list(srv._service.timings)[1:]]
+    finally:
+        srv.stop()
+    for i, (code, body) in enumerate(outs):
+        check(code == 200, f"chat turn {i} failed: {body}")
+        row = body["tokens"][0]
+        check(row[:len(turns[i])] == turns[i]
+              and len(row) == len(turns[i]) + 32
+              and all(0 <= t < cfg.vocab for t in row),
+              f"chat turn {i}: malformed tokens (len {len(row)})")
+    return {"prefix_cache": prefix_cache, "turns_wall_s": wall,
+            "tokens_per_s": 32 * len(turns) / wall, "ttft_s": ttfts,
+            "turn_prefill_tokens": snap["prefill_tokens"]
+            - warm["prefill_tokens"],
+            "rounds": snap["rounds"], "prefills": snap["prefills"],
+            "decode_steps": snap["decode_steps"],
+            "forwards": snap["prefills"] + snap["decode_steps"],
+            "launches": launches, "registry_after_system": {
+                k: registry[k] for k in ("cached_prefixes", "cached_pages",
+                                         "free_pages", "pool_bytes",
+                                         "n_pages", "bytes_per_page")}}
+
+
+def _chat_first_logits(b, system, turns):
+    """Each user turn's first-step logits through batcher ``b`` by
+    ``admit_chunked`` and mixed rounds (the system prompt served first,
+    so that a prefix cache registers it); returns (logits, the prompt
+    tokens the turns prefilled)."""
+    _served_steps(b, [system], 1, chunk=MIXED_CHUNK)
+    before = b.prefill_tokens
+    _, firsts, _, _ = _served_steps(b, turns, 1, chunk=MIXED_CHUNK)
+    return firsts, b.prefill_tokens - before
+
+
+def phase_prefix(torch, card: str):
+    """Llama-2-7B at full width and depth (bf16 random seeded weights;
+    32 heads over 32 kv heads, so K2 at n_rep = 1) served with the prefix
+    cache: ``LLMServer(n_slots=8, page_size=16, prefix_cache=True)``, the
+    default pool of 8 x 256 pages + 1, serves the chat load
+    (:func:`_serve_chat`) and again without the cache.  Checks: after the
+    system prompt the registry holds one prefix of 64 pages; the user
+    turns prefill only their own tokens (``/stats``' prefill tokens);
+    K2 in every layer of every paged forward.  Then, through batchers,
+    the turns' first-step logits with the cache against without it,
+    within LOGIT_TOL or 1.25x the pool's own K2-against-gather distance,
+    and on the weights widened to f32 through the gather read within
+    F32_LOGIT_TOL."""
+    import dataclasses
+
+    from tpushare_torch.models.transformer import param_count
+    from tpushare_torch.ops.quant import kv_cache_bytes
+    from tpushare_torch.serving.llm import build_model
+    from tpushare_torch.serving.paged import PagedContinuousBatcher
+
+    cfg, params = build_model("llama2-7b", seed=SEED, device="cuda")
+    check(cfg.vocab == 32000 and cfg.d_model == 4096 and cfg.n_layers == 32
+          and cfg.n_heads == cfg.n_kv_heads == 32 and cfg.d_ff == 11008
+          and cfg.max_seq == 4096,
+          "llama2-7b config is not full width and depth")
+    system, turns = _chat_prompts(cfg)
+    own = sum(PREFIX_TURNS)
+    served = {}
+    for cache in (True, False):
+        served[cache] = _serve_chat(torch, cfg, params, cache)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = served[True]
+    reg = res["registry_after_system"]
+    check(reg["cached_prefixes"] == 1
+          and reg["cached_pages"] == PREFIX_SYSTEM // 16,
+          f"the registry after the system prompt: {reg}")
+    check(reg["n_pages"] == 8 * cfg.max_seq // 16 + 1
+          and reg["bytes_per_page"] == kv_cache_bytes(cfg, 16),
+          f"the pool: {reg}")
+    check(res["turn_prefill_tokens"] == own,
+          f"the turns prefilled {res['turn_prefill_tokens']} tokens, not "
+          f"their own {own}")
+    check(served[False]["turn_prefill_tokens"] == own
+          + len(turns) * PREFIX_SYSTEM,
+          f"without the cache the turns prefilled "
+          f"{served[False]['turn_prefill_tokens']} tokens")
+    _check_k2_arms(res, "", cfg.n_layers)
+
+    def pool(p, c, cache):
+        return PagedContinuousBatcher(p, c, n_slots=8, page_size=16,
+                                      n_pages=400, device="cuda",
+                                      prefix_cache=cache)
+
+    got, n_cached = _chat_first_logits(pool(params, cfg, True), system,
+                                       turns)
+    want, n_plain = _chat_first_logits(pool(params, cfg, False), system,
+                                       turns)
+    check(n_cached == own and n_plain == own + len(turns) * PREFIX_SYSTEM,
+          f"batcher prefill tokens {n_cached} (cache), {n_plain}")
+    gather, _ = _chat_first_logits(
+        pool(params, dataclasses.replace(cfg, attn_kernel="gather"), False),
+        system, turns)
+    noise = [(g - w).abs().max().item() for g, w in zip(gather, want)]
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    tol = max(LOGIT_TOL, 1.25 * max(noise))
+    check(all(torch.isfinite(g).all().item() for g in got),
+          "prefix-cache logits not finite")
+    check(max(errs) <= tol,
+          f"first-step logits with the cache {errs} from without it, past "
+          f"LOGIT_TOL and 1.25x the K2-against-gather distance {noise}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p32 = _widened(params)
+    c32 = dataclasses.replace(cfg, dtype=torch.float32, attn_kernel="gather")
+    got32, _ = _chat_first_logits(pool(p32, c32, True), system, turns)
+    want32, _ = _chat_first_logits(pool(p32, c32, False), system, turns)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    err32 = [(g - w).abs().max().item() for g, w in zip(got32, want32)]
+    check(max(err32) <= F32_LOGIT_TOL,
+          f"f32 first-step logits with the cache {err32} from without it, "
+          f"past {F32_LOGIT_TOL}")
+    res.update({"model": "llama2-7b", "card": card,
+                "params_b": param_count(params) / 1e9, "n_rep": 1,
+                "system_tokens": PREFIX_SYSTEM, "turn_tokens": PREFIX_TURNS,
+                "without_cache": {k: served[False][k] for k in (
+                    "turns_wall_s", "tokens_per_s", "ttft_s",
+                    "turn_prefill_tokens", "rounds")},
+                "first_logit_max_abs_err": errs,
+                "kernel_vs_gather_max_abs_err": noise, "logit_tol": tol,
+                "f32_first_logit_max_abs_err": err32,
+                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1730,6 +2094,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         sps = run("sp_stripe", phase_sp_stripe, torch, dev["nvidia_smi"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        run("prefix", phase_prefix, torch, dev["nvidia_smi"])
         gc.collect()
         torch.cuda.empty_cache()
         grant = run("grant", phase_grant, torch, dev["nvidia_smi"])

@@ -126,6 +126,18 @@ def test_streams_equal_the_goldens(weights, golden, flavor, window, drain,
     assert b.free_page_count() == b.n_pages - 1
 
 
+@pytest.mark.parametrize("budget", [4, 8])
+def test_frozen_rows_hold_on_the_page_ring(weights, golden, budget):
+    """Decode rounds longer than the ring's prefill margin (12 steps
+    against a ring of 24 positions over a window of 16): a row still
+    prefilling stays frozen at its aimed position; a write wandering to
+    q would recycle the lane of q - 24, inside its next window."""
+    b = _paged(weights, WINDOW)
+    rids = [b.admit_chunked(p, n, chunk=4) for p, n in WIN_REQS]
+    _drain(b, n_steps=12, chunk=4, budget=budget)
+    assert [b.completed[r] for r in rids] == golden["page_ring"]
+
+
 # ---------------------------------------------------------------------------
 # forward_paged_prefill_batch
 # ---------------------------------------------------------------------------
@@ -492,6 +504,7 @@ def test_service_mixed_equals_sequential_flag(weights, jax_service_outputs,
         svc.stop()
     assert outs == jax_service_outputs
     assert snap["rounds"] > 0 and snap["prefills"] > len(SERVICE_REQS)
+    assert snap["prefill_tokens"] == sum(len(p) for p, _ in SERVICE_REQS)
 
 
 def test_service_defaults_are_the_reference_knobs(weights):
@@ -537,3 +550,9 @@ def test_service_ttft_is_taken_at_activation(weights):
     assert svc.rounds >= 10 and len(stamps) == 2
     assert stamps[0] - t1 <= timing["ttft_s"] <= stamps[1] - t0
     assert timing["ttft_s"] < timing["total_s"]
+    # the batcher stays usable on its own: a request the service did not
+    # queue activates without a stamp
+    svc._batcher._activate = activate
+    rid = svc._batcher.admit([7] * 5, 2)
+    svc._batcher.run_until_drained()
+    assert svc._batcher.completed[rid] == _plain(weights, [7] * 5, 2)

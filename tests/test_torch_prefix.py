@@ -159,7 +159,9 @@ def test_prefix_registered_then_reused_exactly(model):
     assert entry.active == 1
     # only its own pages: 6 ranges without the 3 shared
     assert free_before - b.free_page_count() == 6 - 3
+    tokens_before = b.prefill_tokens
     _drain(b)
+    assert b.prefill_tokens - tokens_before == len(p2) - 12
     assert b.completed[r2] == _plain(model, p2, 9)
     assert entry.active == 0
 
@@ -261,8 +263,9 @@ def test_unchunked_admit_streams_past_the_shared_prefix(model, monkeypatch):
     monkeypatch.setattr(ttf, "forward_paged_prefill",
                         lambda *a, **k: calls.append(1) or whole(*a, **k))
     p2 = SYSTEM + [61, 62]
+    before = b.prefill_tokens
     rid = b.admit(p2, 5)
-    assert not calls
+    assert not calls and b.prefill_tokens - before == 2
     b.run_until_drained()
     assert b.completed[rid] == _plain(model, p2, 5)
 

@@ -247,9 +247,11 @@ class ContinuousBatcher:
         self._next_id = 0
         self.completed: Dict[int, List[int]] = {}
         #: forwards run so far: prefill (whole prompts, chunks and mixed
-        #: blocks) and decode steps
+        #: blocks) and decode steps; and the prompt tokens prefilled (a
+        #: cached prefix's are not)
         self.prefills = 0
         self.decode_steps = 0
+        self.prefill_tokens = 0
         self._init_storage()
 
     # -- storage hooks -------------------------------------------------
@@ -404,6 +406,7 @@ class ContinuousBatcher:
             return None
         rid = self._next_id
         self._next_id += 1
+        self.prefill_tokens += len(prompt) - self._prefill_start(slot)
         logits_v = self._prefill_into(slot, list(prompt))
         self.prefills += 1
         self._activate(slot, rid, list(prompt), logits_v, max_new_tokens,
@@ -497,6 +500,7 @@ class ContinuousBatcher:
         logits_v = self._prefill_chunk_into(
             slot, padded.to(self.device), st.pos, len(piece) - 1)
         self.prefills += 1
+        self.prefill_tokens += len(piece)
         st.pos = end
         if end >= len(st.prompt):
             del self.prefilling[slot]
@@ -681,6 +685,7 @@ class ContinuousBatcher:
         # the post-chunk offsets: the frozen garbage aim of the rows just
         # prefilled, as the sequential advance-then-fuse path aims them
         for _, _, st, end in plan:
+            self.prefill_tokens += end - st.pos
             st.pos = end
         n_active = len(self.slots)
         if n_active:
@@ -774,7 +779,9 @@ class ContinuousService:
         activate = self._batcher._activate
 
         def timed_activate(slot, rid, *rest):
-            self._inflight[rid].first_token = time.perf_counter()
+            req = self._inflight.get(rid)
+            if req is not None:          # a request of this service's
+                req.first_token = time.perf_counter()
             return activate(slot, rid, *rest)
 
         self._batcher._activate = timed_activate
@@ -839,7 +846,8 @@ class ContinuousService:
         return {"slots": b.n_slots, "active": len(b.slots),
                 "prefilling": len(b.prefilling), "queued": queued,
                 "rounds": self.rounds, "prefills": b.prefills,
-                "decode_steps": b.decode_steps}
+                "decode_steps": b.decode_steps,
+                "prefill_tokens": b.prefill_tokens}
 
     def storage_info(self) -> dict:
         return self._batcher.storage_info()
