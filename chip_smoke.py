@@ -826,15 +826,20 @@ MIXED_CHUNK = 64
 MIXED_STEPS = 8
 
 
-def _served_steps(b, prompts, max_new: int, chunk=None, tokens=None):
+def _served_steps(b, prompts, max_new: int, chunk=None, tokens=None,
+                  budget=None):
     """Greedy ``prompts`` through batcher ``b``: admitted together by
     ``admit`` and drained by ``tick`` (``chunk`` None), or by
     ``admit_chunked(chunk=)`` and drained by ``tick_mixed(8, chunk=,
-    budget=2 * chunk)``.  Returns (the streams' new tokens, each prompt's
+    budget=)`` (default two windows).  Returns (the streams' new tokens, each prompt's
     first-step logits, taken where its slot activates, and its first
-    decode step's logits, read from the sampler, as f32, and the mixed
-    rounds run).  ``tokens[i]``, where given, replaces prompt i's first
-    token, so that every batcher compared decodes the same one."""
+    decode step's logits, read from the sampler, as f32, the mixed rounds
+    run, and the walls in seconds of their prefill blocks and of their
+    decode steps, each synchronized).  ``tokens[i]``, where given,
+    replaces prompt i's first token, so that every batcher compared
+    decodes the same one."""
+    import torch
+
     base = b._next_id
     firsts, steps, pending = {}, {}, {}
     activate = b._activate
@@ -853,7 +858,24 @@ def _served_steps(b, prompts, max_new: int, chunk=None, tokens=None):
             steps[rid] = logits[slot].float().clone()
         pending.clear()
 
+    walls = {"prefill_block": [], "decode_step": []}
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            n = args[-1] if key == "decode_step" else 1
+            walls[key] += [(time.perf_counter() - t0) / n] * n
+            return out
+        return run
+
+    hooks = (b._prefill_block, b._step_n)
     b._activate = capture
+    if chunk is not None:
+        b._prefill_block = timed(hooks[0], "prefill_block")
+        b._step_n = timed(hooks[1], "decode_step")
     rounds = 0
     try:
         with _sampler_logits(on_step):
@@ -866,14 +888,16 @@ def _served_steps(b, prompts, max_new: int, chunk=None, tokens=None):
                         for p in prompts]
                 check(None not in rids, "chunked admission refused")
                 while b.prefilling or b.slots:
-                    b.tick_mixed(MIXED_STEPS, chunk=chunk, budget=2 * chunk)
+                    b.tick_mixed(MIXED_STEPS, chunk=chunk,
+                                 budget=budget or 2 * chunk)
                     rounds += 1
                     check(rounds < 1000, "the mixed rounds did not drain")
     finally:
         b._activate = activate
+        b._prefill_block, b._step_n = hooks
     news = [b.completed[r][len(p):] for r, p in zip(rids, prompts)]
     return (news, [firsts[r] for r in rids],
-            [steps.get(r) for r in rids], rounds)
+            [steps.get(r) for r in rids], rounds, walls)
 
 
 def _mixed_check(torch, params, cfg):
@@ -890,6 +914,8 @@ def _mixed_check(torch, params, cfg):
     first tokens equal (a block row that reads a wrong page, or a frozen
     row that wanders, fails there)."""
     import dataclasses
+
+    import numpy as np
 
     from tpushare_torch.serving.paged import PagedContinuousBatcher
 
@@ -952,6 +978,12 @@ def _mixed_check(torch, params, cfg):
     return {"chunk": MIXED_CHUNK, "budget": 2 * MIXED_CHUNK,
             "decode_steps_a_round": MIXED_STEPS, "rounds": mix[3],
             "ticked_wall_s": tick_s, "mixed_wall_s": mixed_s,
+            # where the mixed rounds' wall goes (synchronized around each
+            # prefill block and each round's decode steps)
+            "prefill_blocks": len(mix[4]["prefill_block"]),
+            "prefill_block_ms": 1e3 * float(np.mean(mix[4]["prefill_block"])),
+            "decode_steps": len(mix[4]["decode_step"]),
+            "decode_step_ms": 1e3 * float(np.mean(mix[4]["decode_step"])),
             "first_logit_max_abs_err": errs[:4],
             "step_logit_max_abs_err": errs[4:],
             "kernel_vs_gather_max_abs_err": noise, "logit_tol": tol,
@@ -1402,33 +1434,16 @@ ROLLING_CHUNK = 512
 
 def _serve_chunked_mixed(torch, b, prompt, max_new: int):
     """One greedy request (``max_new`` >= 2) admitted by
-    ``admit_chunked`` and drained by ``tick_mixed`` on batcher ``b``;
-    returns (tokens, first-step logits taken where the prompt's last
-    chunk activates the slot, the first decode step's logits, rounds,
-    wall seconds)."""
-    firsts = []
-    activate = b._activate
-
-    def capture(slot, rid, prompt, logits_v, *rest):
-        firsts.append(logits_v.float().clone())
-        return activate(slot, rid, prompt, logits_v, *rest)
-
-    b._activate = capture
+    ``admit_chunked(chunk=512)`` and drained by ``tick_mixed`` with a
+    budget of one window on batcher ``b``; returns (its new tokens, its
+    first-step logits, its first decode step's logits, rounds, wall
+    seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rid = b.admit_chunked(prompt, max_new, chunk=ROLLING_CHUNK)
-    check(rid is not None, "rolling admission refused")
-    slot = next(i for i, st in b.prefilling.items() if st.request_id == rid)
-    rounds = 0
-    with _sampler_logits() as steps:
-        while b.prefilling or b.slots:
-            b.tick_mixed(8, chunk=ROLLING_CHUNK, budget=ROLLING_CHUNK)
-            rounds += 1
-            check(rounds < 100, "the mixed rounds did not drain")
+    news, firsts, steps, rounds, _ = _served_steps(
+        b, [prompt], max_new, chunk=ROLLING_CHUNK, budget=ROLLING_CHUNK)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    b._activate = activate
-    return b.completed[rid], firsts[0], steps[0][slot], rounds, wall
+    return news[0], firsts[0], steps[0], rounds, time.perf_counter() - t0
 
 
 def phase_rolling(torch, card: str):
@@ -1469,12 +1484,11 @@ def phase_rolling(torch, card: str):
           and 8 * info["bytes_per_slot"] == kv_cache_bytes(cfg, cfg.max_seq),
           f"rolling storage {info}")
     _zero_launch_counts()
-    out, first, _, rounds, wall = _serve_chunked_mixed(torch, b, prompt, 32)
+    new, first, _, rounds, wall = _serve_chunked_mixed(torch, b, prompt, 32)
     launches = kernel_launches()
     check(not any(launches.values()), f"a kernel ran: {launches}")
-    check(out[:len(prompt)] == prompt and len(out) == len(prompt) + 32
-          and all(0 <= t < cfg.vocab for t in out),
-          f"rolling: malformed tokens (len {len(out)})")
+    check(len(new) == 32 and all(0 <= t < cfg.vocab for t in new),
+          f"rolling: malformed tokens (len {len(new)})")
     check(torch.isfinite(first).all().item(), "rolling logits not finite")
     del b
     torch.cuda.empty_cache()
@@ -1484,7 +1498,7 @@ def phase_rolling(torch, card: str):
     check(full_info["kind"] == "dense"
           and full_info["slot_tokens"] == cfg.max_seq,
           f"full-row storage {full_info}")
-    out_f, first_f, _, _, wall_f = _serve_chunked_mixed(torch, full, prompt,
+    new_f, first_f, _, _, wall_f = _serve_chunked_mixed(torch, full, prompt,
                                                         32)
     del full
     # the same weights in f32: the ring's first-step and first
@@ -1507,7 +1521,7 @@ def phase_rolling(torch, card: str):
     torch.cuda.empty_cache()
     ring, row = f32["rolling"], f32["dense"]
     err32 = [(ring[i] - row[i]).abs().max().item() for i in (1, 2)]
-    check(ring[0][len(prompt)] == row[0][len(prompt)],
+    check(ring[0][0] == row[0][0],
           f"the f32 ring and row chose different first tokens (first-step "
           f"logits {err32[0]} apart)")
     err = (first - first_f).abs().max().item()
@@ -1519,7 +1533,6 @@ def phase_rolling(torch, card: str):
     check(to32["rolling"] <= max(LOGIT_TOL, 1.25 * to32["full_row"]),
           f"bf16 rolling logits {to32['rolling']} from the f32 row, the "
           f"bf16 row {to32['full_row']}")
-    new, new_f = out[len(prompt):], out_f[len(prompt):]
     return {"model": "mistral-7b", "card": card, "params_b": n_params / 1e9,
             "storage": info, "full_row_storage": full_info,
             "prompt": len(prompt), "chunk": ROLLING_CHUNK, "rounds": rounds,
@@ -1846,7 +1859,7 @@ def _chat_first_logits(b, system, turns):
     tokens the turns prefilled)."""
     _served_steps(b, [system], 1, chunk=MIXED_CHUNK)
     before = b.prefill_tokens
-    _, firsts, _, _ = _served_steps(b, turns, 1, chunk=MIXED_CHUNK)
+    firsts = _served_steps(b, turns, 1, chunk=MIXED_CHUNK)[1]
     return firsts, b.prefill_tokens - before
 
 
