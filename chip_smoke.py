@@ -831,11 +831,12 @@ def _served_steps(b, prompts, max_new: int, chunk=None, tokens=None,
     """Greedy ``prompts`` through batcher ``b``: admitted together by
     ``admit`` and drained by ``tick`` (``chunk`` None), or by
     ``admit_chunked(chunk=)`` and drained by ``tick_mixed(8, chunk=,
-    budget=)`` (default two windows).  Returns (the streams' new tokens, each prompt's
-    first-step logits, taken where its slot activates, and its first
-    decode step's logits, read from the sampler, as f32, the mixed rounds
-    run, and the walls in seconds of their prefill blocks and of their
-    decode steps, each synchronized).  ``tokens[i]``, where given,
+    budget=)`` (default two windows).  Returns (the streams' new
+    tokens, each prompt's first-step logits, taken where its slot
+    activates, and its first decode step's logits, read from the
+    sampler, as f32, the mixed rounds run, and the walls in seconds of
+    their prefill blocks and of their decode steps, each
+    synchronized).  ``tokens[i]``, where given,
     replaces prompt i's first token, so that every batcher compared
     decodes the same one."""
     import torch

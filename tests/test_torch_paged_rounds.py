@@ -268,9 +268,9 @@ def test_prefill_batch_matches_jax(weights, kv_dtype, attn_kernel, sp):
     JAX's at every call, and every page but the trash pages equal (int8
     codes but for rare ties of the rounding; a row whose own window holds
     such a tie reads a key one step off, so its logits and its window's
-    scales are left out, at most one row of the eight).  With ``sp = 2`` the pool is striped over two CPU
-    shards, and the padded row's writes land on each stripe's trash
-    page."""
+    scales are left out, at most one row of the eight).  With ``sp = 2``
+    the pool is striped over two CPU shards, and the padded row's writes
+    land on each stripe's trash page."""
     logits, got, want, exact = _run_batches(weights, kv_dtype, attn_kernel,
                                             sp)
     held = [(tl, jl) for tl, jl, same in logits if same]
