@@ -53,16 +53,22 @@ CUDA toolkit.  Phases, each printing one JSON line:
    and S = 8192 (``tpushare_torch.profile_k1 --bwd``);
 6. the server: Llama-3-8B at full width and depth with random seeded
    weights, an in-process ``LLMServer`` (8 slots, pages of 16; its
-   service streams prompts in 64-token windows through mixed rounds of
-   a 128-token prefill budget and 8 decode steps), four concurrent
-   ``/generate`` requests and one 2048-token ``/score``; the kernels'
-   launch counters are zeroed just before and read just after; then the
-   ``mixed`` check: the greedy prompts on a paged pool through
+   service admits a prompt whole when no slot decodes, else streams it
+   in 64-token windows through mixed rounds of a 128-token prefill
+   budget and 8 decode steps), four concurrent ``/generate`` requests
+   and one 2048-token ``/score``; the kernels' launch counters are
+   zeroed just before and read just after; then the arrivals load
+   (three decoders, the 2000-token prompt sent once they decode, which
+   the service must stream; K2 in every layer of every forward); then
+   the ``mixed`` check: the greedy prompts on a paged pool through
    ``admit_chunked(chunk=64)`` and ``tick_mixed(8, chunk=64,
    budget=128)`` against ``admit`` and ``tick``, their first-step and
    first decode-step logits within LOGIT_TOL or 1.25x the pool's own
    K2-against-gather distance, and on the weights widened to f32 through
-   the gather read within F32_LOGIT_TOL;
+   the gather read within F32_LOGIT_TOL; then the arrivals load on
+   batchers both ways (the long prompt admitted whole or streamed): its
+   time to the first token, the decoders' time to their last and their
+   longest wait between rounds;
 7. agreement: ``flagship-small`` in bf16, the K2 read path against the
    gather path, in f32 and in bf16 (first-step logits and greedy
    streams), and the no-cache forward through K1 against the gather
@@ -108,14 +114,16 @@ CUDA toolkit.  Phases, each printing one JSON line:
 12. prefix: Llama-2-7B at full width and depth (bf16 random weights,
     32 heads over 32 kv heads: K2 at n_rep = 1) on
     ``LLMServer(n_slots=8, page_size=16, prefix_cache=True)`` (8 x 256
-    pages + 1, 17.2 GB): a 1,024-token system prompt alone, then four
-    user turns of 64-256 tokens behind it (the first alone, three
-    concurrently), 32 new tokens each, and the same without the cache;
-    the registry holds one prefix of 64 pages, the turns prefill only
-    their own tokens, K2 in every paged layer; the turns' first-step
-    logits with the cache against without it (bf16 within LOGIT_TOL or
-    1.25x the K2-against-gather distance, f32 through the gather read
-    within F32_LOGIT_TOL); the turns' TTFT both ways;
+    pages + 1, 17.2 GB): four conversations, each a 1,024-token system
+    prompt and a first user turn of 64-256 tokens, sent concurrently,
+    then their second turns (the first prompt, its 32-token reply and a
+    64-token user turn) concurrently, 32 new tokens each, and the same
+    without the cache; the registry holds one prefix a conversation, the
+    second turns prefill only the reply and the new turn, K2 in every
+    paged layer; the second turns' first-step logits with the cache
+    against without it (bf16 within LOGIT_TOL or 1.25x the
+    K2-against-gather distance, f32 through the gather read within
+    F32_LOGIT_TOL); the turns' TTFT both ways;
 13. grant: the server started as a pod is, by ``llm.start_server`` under
     the device plugin's env for a 14 GiB pod on an 80-unit card (the
     allocator capped at the fraction 0.175 before anything is built),
@@ -766,6 +774,8 @@ def _drive_server(port: int, cfg) -> dict:
             "tokens_per_s": 32 * len(reqs) / gen_wall,
             "ttft_s": stats["ttft_s"], "score_s": score_s,
             "rounds": b["rounds"], "prefill_tokens": b["prefill_tokens"],
+            "admitted_whole": b["admitted_whole"],
+            "admitted_chunked": b["admitted_chunked"],
             "prefills": b["prefills"], "decode_steps": b["decode_steps"],
             "forwards": b["prefills"] + b["decode_steps"],
             "launches": launches, "kv_storage": stats["kv_storage"],
@@ -806,10 +816,12 @@ def phase_server(torch, card: str):
                     device="cuda").start()
     try:
         res = _drive_server(srv.port, cfg)
+        arrivals = _drive_arrivals(srv, cfg)
     finally:
         srv.stop()
     del srv
     _check_k2_arms(res, "", cfg.n_layers)
+    _check_k2_arms(arrivals, "", cfg.n_layers)
     res.update({"model": "llama3-8b", "card": card,
                 "params_b": param_count(params) / 1e9, "init_s": init_s,
                 "kv_pool_bytes": res.pop("kv_storage")["pool_bytes"],
@@ -817,6 +829,10 @@ def phase_server(torch, card: str):
     gc.collect()
     torch.cuda.empty_cache()
     res["mixed"] = _mixed_check(torch, params, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    arrivals["batcher"] = _arrivals_check(torch, params, cfg)
+    res["arrivals"] = arrivals
     return res
 
 
@@ -995,6 +1011,150 @@ def _mixed_check(torch, params, cfg):
             "f32_first_logit_max_abs_err": err32[:4],
             "f32_step_logit_max_abs_err": err32[4:],
             "f32_rounds": mix32[3]}
+
+
+#: the arrivals load: three greedy decoders (256-token prompts, 96 new
+#: tokens each) are decoding when the serving load's 2000-token prompt
+#: (32 new tokens) arrives
+ARRIVAL_DECODERS = 3
+ARRIVAL_NEW = 96
+
+
+def _arrival_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    short = [rng.integers(0, cfg.vocab, 256).tolist()
+             for _ in range(ARRIVAL_DECODERS)]
+    return short, _load_prompts(cfg)[0][3]
+
+
+def _drive_arrivals(srv, cfg) -> dict:
+    """The arrivals load through the running server: the decoders posted
+    together; once the service shows them all decoding, the long prompt,
+    which the loop must then stream through mixed rounds.  The counters
+    are zeroed just before and read just after."""
+    from tpushare_torch.serving.llm import kernel_launches
+
+    short, long_ = _arrival_prompts(cfg)
+    svc = srv._service
+    before = svc.snapshot()
+    n_timed = len(svc.timings)
+    outs = [None] * (len(short) + 1)
+
+    def send(i, tokens, n):
+        try:
+            outs[i] = _post(srv.port, "/generate",
+                            {"tokens": [tokens], "max_new_tokens": n})
+        except Exception as e:      # reported below
+            outs[i] = (None, repr(e))
+
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i, p, ARRIVAL_NEW))
+               for i, p in enumerate(short)]
+    for t in threads:
+        t.start()
+    while True:      # every decoder activated, and a round has run
+        now = svc.snapshot()
+        if (now["active"] == len(short)
+                and now["decode_steps"] > before["decode_steps"]):
+            break
+        check(time.perf_counter() - t0 < 120, "the decoders never decoded")
+        time.sleep(0.005)
+    t_long = time.perf_counter()
+    threads.append(threading.Thread(target=send,
+                                    args=(len(short), long_, 32)))
+    threads[-1].start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    snap = svc.snapshot()
+    timings = list(svc.timings)[n_timed:]
+    for i, (code, body) in enumerate(outs):
+        check(code == 200, f"arrivals request {i} failed: {body}")
+        row = body["tokens"][0]
+        want = short[i] if i < len(short) else long_
+        n = ARRIVAL_NEW if i < len(short) else 32
+        check(row[:len(want)] == want and len(row) == len(want) + n
+              and all(0 <= t < cfg.vocab for t in row),
+              f"arrivals request {i}: malformed tokens (len {len(row)})")
+    delta = {k: snap[k] - before[k] for k in (
+        "rounds", "admitted_whole", "admitted_chunked", "prefills",
+        "decode_steps", "prefill_tokens")}
+    check(delta["admitted_chunked"] >= 1,
+          f"the long prompt was not streamed: {delta}")
+    longs = [t for t in timings if t["new_tokens"] == 32]
+    decs = [t for t in timings if t["new_tokens"] == ARRIVAL_NEW]
+    check(len(longs) == 1 and len(decs) == len(short),
+          f"arrivals timings {timings}")
+    return {**delta, "forwards": delta["prefills"] + delta["decode_steps"],
+            "launches": launches, "wall_s": wall,
+            "long_sent_after_s": t_long - t0,
+            "long_ttft_s": longs[0]["ttft_s"],
+            "long_total_s": longs[0]["total_s"],
+            "decoders_total_s": [t["total_s"] for t in decs]}
+
+
+def _arrivals(torch, b, chunked: bool) -> dict:
+    """The arrivals load on batcher ``b``, as the service's loop would run
+    it under either choice: the decoders admitted whole and one round of
+    8 fused steps, then the long prompt arrives, admitted whole
+    (``admit``, then ``tick_fused`` rounds) or streamed
+    (``admit_chunked(chunk=64)``, ``tick_mixed(8, chunk=64, budget=128)``
+    rounds while it prefills).  Returns the long prompt's seconds from
+    its arrival to its first token, the decoders' to their last, the
+    longest wait between two rounds' ends while the decoders live (the
+    longest they go without tokens), the rounds, and the tokens."""
+    import numpy as np
+
+    short, long_ = _arrival_prompts(b.cfg)
+    rids = [b.admit(p, ARRIVAL_NEW) for p in short]
+    check(None not in rids, "arrivals: decoder admission refused")
+    b.tick_fused(MIXED_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = (b.admit_chunked(long_, 32, chunk=MIXED_CHUNK) if chunked
+           else b.admit(long_, 32))
+    check(rid is not None, "arrivals: the long prompt was refused")
+    ends, done, rounds = [t0], None, 0
+    while b.slots or b.prefilling:
+        if b.prefilling:
+            b.tick_mixed(MIXED_STEPS, chunk=MIXED_CHUNK,
+                         budget=2 * MIXED_CHUNK)
+        else:
+            b.tick_fused(MIXED_STEPS)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        rounds += 1
+        check(rounds < 1000, "arrivals: the rounds did not drain")
+        if done is None and all(r in b.completed for r in rids):
+            done = len(ends) - 1
+    gaps = np.diff(ends[:done + 1])
+    return {"long_ttft_s": b.activated_at[rid] - t0,
+            "decoders_s": ends[done] - t0,
+            "longest_gap_ms": 1e3 * float(gaps.max()),
+            "mean_gap_ms": 1e3 * float(gaps.mean()), "rounds": rounds,
+            "tokens": [b.completed[r][len(p):]
+                       for r, p in zip(rids + [rid], short + [long_])]}
+
+
+def _arrivals_check(torch, params, cfg) -> dict:
+    """The arrivals load on paged pools of 8 slots both ways (whole and
+    streamed admission of the prompt that arrives while slots decode):
+    the trade the service's loop makes when it streams."""
+    from tpushare_torch.serving.paged import PagedContinuousBatcher
+
+    out = {}
+    for name, chunked in (("whole", False), ("streamed", True)):
+        b = PagedContinuousBatcher(params, cfg, n_slots=8, page_size=16,
+                                   n_pages=300, device="cuda")
+        out[name] = _arrivals(torch, b, chunked)
+        del b
+    toks = [out[k].pop("tokens") for k in ("whole", "streamed")]
+    out["first_tokens_equal"] = [a[0] == c[0] for a, c in zip(*toks)]
+    return out
 
 
 #: the device plugin's allocation env for a 14 GiB pod on an 80 GiB card
@@ -1580,7 +1740,7 @@ def _sampler_logits(on_call=None):
     """The logits every decode step hands the batchers' sampler while the
     block runs ([B, V], as f32 copies, in order), or each handed to
     ``on_call`` instead."""
-    from tpushare_torch.serving import continuous, paged
+    from tpushare_torch.serving import continuous
 
     seen, sample = [], continuous._sample_next
 
@@ -1591,11 +1751,11 @@ def _sampler_logits(on_call=None):
             on_call(logits)
         return sample(logits, *rest)
 
-    continuous._sample_next = paged._sample_next = spy
+    continuous._sample_next = spy
     try:
         yield seen
     finally:
-        continuous._sample_next = paged._sample_next = sample
+        continuous._sample_next = sample
 
 
 def _step_logits(b, prompts, tokens):
@@ -1777,91 +1937,115 @@ def phase_sp_stripe(torch, card: str):
     return res
 
 
-#: the prefix phase's chat load: one 1,024-token system prompt (64
-#: pages of 16) heads every request, then a distinct user turn each
+#: the prefix phase's chat load: four conversations, each a 1,024-token
+#: system prompt and a first user turn of its own length; the second turn
+#: sends the first turn's prompt, its 32-token reply and a new 64-token
+#: user turn, as a chat client resends the conversation
 PREFIX_SYSTEM = 1024
 PREFIX_TURNS = (64, 128, 192, 256)
+PREFIX_FOLLOW_UP = 64
+PREFIX_NEW = 32
 
 
 def _chat_prompts(cfg):
+    """The conversations' first-turn prompts and their second user
+    turns."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 17)
     system = rng.integers(0, cfg.vocab, PREFIX_SYSTEM).tolist()
-    return system, [system + rng.integers(0, cfg.vocab, n).tolist()
-                    for n in PREFIX_TURNS]
+    firsts = [system + rng.integers(0, cfg.vocab, n).tolist()
+              for n in PREFIX_TURNS]
+    return firsts, [rng.integers(0, cfg.vocab, PREFIX_FOLLOW_UP).tolist()
+                    for _ in PREFIX_TURNS]
+
+
+def _post_all(port, prompts, n_new: int, vocab: int):
+    """``prompts`` as concurrent ``/generate`` requests; returns each one's
+    new tokens, checked for form, and the wall."""
+    outs = [None] * len(prompts)
+
+    def send(i):
+        try:
+            outs[i] = _post(port, "/generate",
+                            {"tokens": [prompts[i]], "max_new_tokens": n_new})
+        except Exception as e:      # reported below
+            outs[i] = (None, repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    news = []
+    for i, (code, body) in enumerate(outs):
+        check(code == 200, f"chat request {i} failed: {body}")
+        row = body["tokens"][0]
+        check(row[:len(prompts[i])] == prompts[i]
+              and len(row) == len(prompts[i]) + n_new
+              and all(0 <= t < vocab for t in row),
+              f"chat request {i}: malformed tokens (len {len(row)})")
+        news.append(row[len(prompts[i]):])
+    return news, wall
 
 
 def _serve_chat(torch, cfg, params, prefix_cache: bool) -> dict:
     """The chat load through an ``LLMServer(n_slots=8, page_size=16)``
-    over HTTP: the system prompt alone (32 new tokens; with the cache it
-    registers the prompt's 64 pages), then the first user turn alone and
-    the other three concurrently, 32 new tokens each.  The counters are
-    zeroed just before and read just after."""
+    over HTTP: the four conversations' first turns concurrently, then
+    their second turns concurrently, 32 new tokens each.  The counters
+    are zeroed just before the first turns and read just after the
+    second."""
     from tpushare_torch.serving.llm import LLMServer, kernel_launches
 
-    system, turns = _chat_prompts(cfg)
+    firsts, follow = _chat_prompts(cfg)
     srv = LLMServer(cfg, params, port=0, n_slots=8, page_size=16,
                     device="cuda", prefix_cache=prefix_cache).start()
-    outs = [None] * len(turns)
-
-    def send(i):
-        try:
-            outs[i] = _post(srv.port, "/generate",
-                            {"tokens": [turns[i]], "max_new_tokens": 32})
-        except Exception as e:      # reported below
-            outs[i] = (None, repr(e))
-
+    svc = srv._service
     try:
         _zero_launch_counts()
-        code, body = _post(srv.port, "/generate",
-                           {"tokens": [system], "max_new_tokens": 32})
-        check(code == 200, f"the system prompt failed: {body}")
-        warm = srv._service.snapshot()
-        registry = srv._service.storage_info()
-        t0 = time.perf_counter()
-        send(0)
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(1, len(turns))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=900)
-        wall = time.perf_counter() - t0
+        replies, wall1 = _post_all(srv.port, firsts, PREFIX_NEW,
+                                   cfg.vocab)
+        mid = svc.snapshot()
+        registry = svc.storage_info()
+        seconds = [p + r + f for p, r, f in zip(firsts, replies, follow)]
+        _, wall2 = _post_all(srv.port, seconds, PREFIX_NEW, cfg.vocab)
         launches = kernel_launches()
-        snap = srv._service.snapshot()
-        ttfts = [t["ttft_s"] for t in list(srv._service.timings)[1:]]
+        snap = svc.snapshot()
+        timings = list(svc.timings)
     finally:
         srv.stop()
-    for i, (code, body) in enumerate(outs):
-        check(code == 200, f"chat turn {i} failed: {body}")
-        row = body["tokens"][0]
-        check(row[:len(turns[i])] == turns[i]
-              and len(row) == len(turns[i]) + 32
-              and all(0 <= t < cfg.vocab for t in row),
-              f"chat turn {i}: malformed tokens (len {len(row)})")
-    return {"prefix_cache": prefix_cache, "turns_wall_s": wall,
-            "tokens_per_s": 32 * len(turns) / wall, "ttft_s": ttfts,
-            "turn_prefill_tokens": snap["prefill_tokens"]
-            - warm["prefill_tokens"],
+    n = len(firsts)
+    return {"prefix_cache": prefix_cache, "second_turns": seconds,
+            "first_turns_wall_s": wall1, "second_turns_wall_s": wall2,
+            "second_turns_tokens_per_s": PREFIX_NEW * n / wall2,
+            "first_ttft_s": [t["ttft_s"] for t in timings[:n]],
+            "second_ttft_s": [t["ttft_s"] for t in timings[n:]],
+            "first_prefill_tokens": mid["prefill_tokens"],
+            "second_prefill_tokens": snap["prefill_tokens"]
+            - mid["prefill_tokens"],
             "rounds": snap["rounds"], "prefills": snap["prefills"],
+            "admitted_whole": snap["admitted_whole"],
+            "admitted_chunked": snap["admitted_chunked"],
             "decode_steps": snap["decode_steps"],
             "forwards": snap["prefills"] + snap["decode_steps"],
-            "launches": launches, "registry_after_system": {
+            "launches": launches, "registry_after_first_turns": {
                 k: registry[k] for k in ("cached_prefixes", "cached_pages",
                                          "free_pages", "pool_bytes",
                                          "n_pages", "bytes_per_page")}}
 
 
-def _chat_first_logits(b, system, turns):
-    """Each user turn's first-step logits through batcher ``b`` by
-    ``admit_chunked`` and mixed rounds (the system prompt served first,
-    so that a prefix cache registers it); returns (logits, the prompt
-    tokens the turns prefilled)."""
-    _served_steps(b, [system], 1, chunk=MIXED_CHUNK)
+def _chat_first_logits(b, firsts, seconds):
+    """Each second turn's first-step logits through batcher ``b`` by
+    ``admit_chunked`` and mixed rounds, after the first turns (one new
+    token each; a prefix cache registers their prompts); returns (logits,
+    the prompt tokens the second turns prefilled)."""
+    _served_steps(b, firsts, 1, chunk=MIXED_CHUNK)
     before = b.prefill_tokens
-    firsts = _served_steps(b, turns, 1, chunk=MIXED_CHUNK)[1]
-    return firsts, b.prefill_tokens - before
+    got = _served_steps(b, seconds, 1, chunk=MIXED_CHUNK)[1]
+    return got, b.prefill_tokens - before
 
 
 def phase_prefix(torch, card: str):
@@ -1870,13 +2054,13 @@ def phase_prefix(torch, card: str):
     cache: ``LLMServer(n_slots=8, page_size=16, prefix_cache=True)``, the
     default pool of 8 x 256 pages + 1, serves the chat load
     (:func:`_serve_chat`) and again without the cache.  Checks: after the
-    system prompt the registry holds one prefix of 64 pages; the user
-    turns prefill only their own tokens (``/stats``' prefill tokens);
-    K2 in every layer of every paged forward.  Then, through batchers,
-    the turns' first-step logits with the cache against without it,
-    within LOGIT_TOL or 1.25x the pool's own K2-against-gather distance,
-    and on the weights widened to f32 through the gather read within
-    F32_LOGIT_TOL."""
+    first turns the registry holds one prefix a conversation, its first
+    prompt's pages; the second turns prefill only the reply and the new
+    user turn (``/stats``' prefill tokens); K2 in every layer of every
+    paged forward.  Then, through batchers, the second turns' first-step
+    logits with the cache against without it, within LOGIT_TOL or 1.25x
+    the pool's own K2-against-gather distance, and on the weights widened
+    to f32 through the gather read within F32_LOGIT_TOL."""
     import dataclasses
 
     from tpushare_torch.models.transformer import param_count
@@ -1889,28 +2073,33 @@ def phase_prefix(torch, card: str):
           and cfg.n_heads == cfg.n_kv_heads == 32 and cfg.d_ff == 11008
           and cfg.max_seq == 4096,
           "llama2-7b config is not full width and depth")
-    system, turns = _chat_prompts(cfg)
-    own = sum(PREFIX_TURNS)
+    firsts, _ = _chat_prompts(cfg)
+    first_pages = sum(len(p) for p in firsts) // 16
+    own = len(firsts) * (PREFIX_NEW + PREFIX_FOLLOW_UP)
     served = {}
     for cache in (True, False):
         served[cache] = _serve_chat(torch, cfg, params, cache)
         gc.collect()
         torch.cuda.empty_cache()
-    res = served[True]
-    reg = res["registry_after_system"]
-    check(reg["cached_prefixes"] == 1
-          and reg["cached_pages"] == PREFIX_SYSTEM // 16,
-          f"the registry after the system prompt: {reg}")
+    res, plain = served[True], served[False]
+    seconds = res.pop("second_turns")
+    reg = res["registry_after_first_turns"]
+    check(reg["cached_prefixes"] == len(firsts)
+          and reg["cached_pages"] == first_pages,
+          f"the registry after the first turns: {reg}")
     check(reg["n_pages"] == 8 * cfg.max_seq // 16 + 1
           and reg["bytes_per_page"] == kv_cache_bytes(cfg, 16),
           f"the pool: {reg}")
-    check(res["turn_prefill_tokens"] == own,
-          f"the turns prefilled {res['turn_prefill_tokens']} tokens, not "
-          f"their own {own}")
-    check(served[False]["turn_prefill_tokens"] == own
-          + len(turns) * PREFIX_SYSTEM,
-          f"without the cache the turns prefilled "
-          f"{served[False]['turn_prefill_tokens']} tokens")
+    check(res["first_prefill_tokens"] == plain["first_prefill_tokens"]
+          == sum(len(p) for p in firsts),
+          f"the first turns prefilled {res['first_prefill_tokens']} and "
+          f"{plain['first_prefill_tokens']} tokens")
+    check(res["second_prefill_tokens"] == own,
+          f"the second turns prefilled {res['second_prefill_tokens']} "
+          f"tokens, not their own {own}")
+    check(plain["second_prefill_tokens"] == sum(len(p) for p in seconds),
+          f"without the cache the second turns prefilled "
+          f"{plain['second_prefill_tokens']} tokens")
     _check_k2_arms(res, "", cfg.n_layers)
 
     def pool(p, c, cache):
@@ -1918,15 +2107,15 @@ def phase_prefix(torch, card: str):
                                       n_pages=400, device="cuda",
                                       prefix_cache=cache)
 
-    got, n_cached = _chat_first_logits(pool(params, cfg, True), system,
-                                       turns)
-    want, n_plain = _chat_first_logits(pool(params, cfg, False), system,
-                                       turns)
-    check(n_cached == own and n_plain == own + len(turns) * PREFIX_SYSTEM,
+    got, n_cached = _chat_first_logits(pool(params, cfg, True), firsts,
+                                       seconds)
+    want, n_plain = _chat_first_logits(pool(params, cfg, False), firsts,
+                                       seconds)
+    check(n_cached == own and n_plain == sum(len(p) for p in seconds),
           f"batcher prefill tokens {n_cached} (cache), {n_plain}")
     gather, _ = _chat_first_logits(
         pool(params, dataclasses.replace(cfg, attn_kernel="gather"), False),
-        system, turns)
+        firsts, seconds)
     noise = [(g - w).abs().max().item() for g, w in zip(gather, want)]
     errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
     tol = max(LOGIT_TOL, 1.25 * max(noise))
@@ -1939,8 +2128,8 @@ def phase_prefix(torch, card: str):
     torch.cuda.empty_cache()
     p32 = _widened(params)
     c32 = dataclasses.replace(cfg, dtype=torch.float32, attn_kernel="gather")
-    got32, _ = _chat_first_logits(pool(p32, c32, True), system, turns)
-    want32, _ = _chat_first_logits(pool(p32, c32, False), system, turns)
+    got32, _ = _chat_first_logits(pool(p32, c32, True), firsts, seconds)
+    want32, _ = _chat_first_logits(pool(p32, c32, False), firsts, seconds)
     del p32
     gc.collect()
     torch.cuda.empty_cache()
@@ -1951,9 +2140,13 @@ def phase_prefix(torch, card: str):
     res.update({"model": "llama2-7b", "card": card,
                 "params_b": param_count(params) / 1e9, "n_rep": 1,
                 "system_tokens": PREFIX_SYSTEM, "turn_tokens": PREFIX_TURNS,
-                "without_cache": {k: served[False][k] for k in (
-                    "turns_wall_s", "tokens_per_s", "ttft_s",
-                    "turn_prefill_tokens", "rounds")},
+                "follow_up_tokens": PREFIX_FOLLOW_UP,
+                "second_turn_tokens": [len(p) for p in seconds],
+                "without_cache": {k: plain[k] for k in (
+                    "first_turns_wall_s", "second_turns_wall_s",
+                    "second_turns_tokens_per_s", "first_ttft_s",
+                    "second_ttft_s", "second_prefill_tokens", "rounds",
+                    "admitted_whole", "admitted_chunked")},
                 "first_logit_max_abs_err": errs,
                 "kernel_vs_gather_max_abs_err": noise, "logit_tol": tol,
                 "f32_first_logit_max_abs_err": err32,

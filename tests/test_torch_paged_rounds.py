@@ -33,6 +33,7 @@ from tpushare.serving.paged import PagedContinuousBatcher as JaxPaged
 from tpushare_torch.models import transformer as ttf
 from tpushare_torch.models.bridge import params_from_numpy
 from tpushare_torch.parallel.mesh import make_mesh
+from tpushare_torch.serving import continuous
 from tpushare_torch.serving.continuous import ContinuousService
 from tpushare_torch.serving.generate import generate
 from tpushare_torch.serving.paged import PagedContinuousBatcher
@@ -487,72 +488,117 @@ def jax_service_outputs(weights):
         svc.stop()
 
 
+@pytest.fixture
+def small_windows(monkeypatch):
+    """The service's window and fused steps at 4 tokens, so that the
+    tiny prompts stream over several windows."""
+    monkeypatch.setattr(continuous, "PREFILL_CHUNK", 4)
+    monkeypatch.setattr(continuous, "DECODE_CHUNK", 4)
+
+
 @pytest.mark.parametrize("page_size", [0, 4], ids=["dense", "paged"])
 @pytest.mark.parametrize("mixed", [True, False],
                          ids=["mixed", "sequential"])
 def test_service_mixed_equals_sequential_flag(weights, jax_service_outputs,
-                                              page_size, mixed):
+                                              small_windows, page_size,
+                                              mixed):
+    """All four requests queued before the loop starts: the first pass
+    (nothing decoding) admits two whole, and the later ones are admitted
+    while a slot decodes, so they stream through the rounds."""
     svc = ContinuousService(weights["full"][1], _cfg(), n_slots=2,
                             page_size=page_size, device="cpu",
-                            prefill_chunk=4, decode_chunk=4,
-                            mixed_step=mixed).start()
+                            mixed_step=mixed)
+    sinks = [svc.submit(p, n) for p, n in SERVICE_REQS]
+    svc.start()
     try:
-        sinks = [svc.submit(p, n) for p, n in SERVICE_REQS]
         outs = [s.get(timeout=120) for s in sinks]
         snap = svc.snapshot()
     finally:
         svc.stop()
     assert outs == jax_service_outputs
     assert snap["rounds"] > 0 and snap["prefills"] > len(SERVICE_REQS)
+    assert (snap["admitted_whole"], snap["admitted_chunked"]) == (3, 1)
     assert snap["prefill_tokens"] == sum(len(p) for p, _ in SERVICE_REQS)
 
 
 def test_service_defaults_are_the_reference_knobs(weights):
     svc = ContinuousService(weights["full"][1], _cfg(), n_slots=2,
                             page_size=4, device="cpu")
-    assert (svc._prefill_chunk, svc._decode_chunk,
-            svc._prefill_decode_chunk, svc._mixed_step,
-            svc._prefill_budget) == (64, 8, 8, True, 128)
+    assert (continuous.PREFILL_CHUNK, continuous.DECODE_CHUNK,
+            svc._mixed_step, svc._prefill_budget) == (64, 8, True, 128)
     assert svc._batcher.max_prefill_chunk == 64
     svc = ContinuousService(weights["full"][1], _cfg(), n_slots=2,
-                            page_size=4, device="cpu", prefill_chunk=8,
-                            decode_chunk=1, prefill_budget=40)
-    assert (svc._batcher.max_prefill_chunk, svc._prefill_decode_chunk,
-            svc._prefill_budget) == (8, 1, 40)
+                            page_size=4, device="cpu", prefill_budget=40)
+    assert svc._prefill_budget == 40
 
 
-def test_service_ttft_is_taken_at_activation(weights):
-    """A 40-token prompt in 4-token chunks activates ten rounds after its
-    admission: its ``ttft_s`` brackets the activation, not the
+def _serve_by_hand(svc, sinks):
+    """The loop's body, run on this thread until every sink holds its
+    output: admission, a round, delivery.  Returns each round's
+    (start, end) times."""
+    spans = []
+    while not all(s.full() for s in sinks):
+        svc._admit_waiting()
+        t0 = time.perf_counter()
+        svc._round()
+        spans.append((t0, time.perf_counter()))
+        svc._deliver()
+        assert len(spans) < 200
+    return spans
+
+
+def test_service_ttft_is_taken_at_activation(weights, small_windows):
+    """A 40-token prompt that arrives while a slot decodes streams in
+    4-token windows and activates ten rounds after its admission: its
+    ``ttft_s`` lies inside the round that activated it, not at the
     admission."""
     svc = ContinuousService(weights["full"][1], _cfg(), n_slots=2,
-                            page_size=4, device="cpu", prefill_chunk=4,
-                            prefill_budget=4)
-    stamps = []
-    activate = svc._batcher._activate
-
-    def timed(*args):
-        stamps.append(time.perf_counter())
-        activate(*args)
-        stamps.append(time.perf_counter())
-
-    svc._batcher._activate = timed
-    svc.start()
-    try:
-        t0 = time.perf_counter()
-        sink = svc.submit([7] * 40, 3)
-        t1 = time.perf_counter()
-        out = sink.get(timeout=120)
-        timing = svc.timings[-1]
-    finally:
-        svc.stop()
-    assert out == _plain(weights, [7] * 40, 3)
-    assert svc.rounds >= 10 and len(stamps) == 2
-    assert stamps[0] - t1 <= timing["ttft_s"] <= stamps[1] - t0
+                            page_size=4, device="cpu", prefill_budget=4)
+    b = svc._batcher
+    decoder = svc.submit([5, 6, 7], 60)
+    svc._admit_waiting()
+    svc._round()
+    t0 = time.perf_counter()
+    sink = svc.submit([7] * 40, 3)
+    t1 = time.perf_counter()
+    svc._admit_waiting()
+    (rid,) = [r for r, req in svc._inflight.items() if req.sink is sink]
+    assert [st.request_id for st in b.prefilling.values()] == [rid]
+    activated, spans = None, []
+    while not sink.full():
+        start = time.perf_counter()
+        svc._round()
+        spans.append((start, time.perf_counter()))
+        if activated is None and rid in b.activated_at:
+            activated = len(spans) - 1
+        svc._deliver()
+    timing = svc.timings[-1]
+    _serve_by_hand(svc, [decoder])
+    assert sink.get() == _plain(weights, [7] * 40, 3)
+    assert decoder.get() == _plain(weights, [5, 6, 7], 60)
+    assert (svc.admitted_whole, svc.admitted_chunked) == (1, 1)
+    assert activated >= 9
+    lo, hi = spans[activated]
+    assert lo - t1 <= timing["ttft_s"] <= hi - t0
     assert timing["ttft_s"] < timing["total_s"]
-    # the batcher stays usable on its own: a request the service did not
-    # queue activates without a stamp
-    svc._batcher._activate = activate
-    rid = svc._batcher.admit([7] * 5, 2)
-    svc._batcher.run_until_drained()
-    assert svc._batcher.completed[rid] == _plain(weights, [7] * 5, 2)
+
+
+def test_service_admits_whole_when_nothing_decodes(weights, small_windows):
+    """A pass that starts with no slot decoding prefills each prompt in
+    one forward, however long; a prompt that arrives while a slot decodes
+    streams in windows through mixed rounds."""
+    svc = ContinuousService(weights["full"][1], _cfg(), n_slots=3,
+                            page_size=4, device="cpu")
+    b = svc._batcher
+    burst = [svc.submit([3] * 30, 10), svc.submit([4] * 21, 10)]
+    svc._admit_waiting()
+    assert (b.prefills, len(b.slots), len(b.prefilling)) == (2, 2, 0)
+    svc._round()
+    late = svc.submit([9] * 30, 5)
+    svc._admit_waiting()
+    assert len(b.prefilling) == 1 and svc.admitted_chunked == 1
+    _serve_by_hand(svc, burst + [late])
+    assert b.prefills == 2 + -(-30 // 4)
+    assert [s.get() for s in burst + [late]] == [
+        _plain(weights, [3] * 30, 10), _plain(weights, [4] * 21, 10),
+        _plain(weights, [9] * 30, 5)]

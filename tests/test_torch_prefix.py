@@ -27,7 +27,7 @@ from tpushare.models import transformer as jtf
 from tpushare.serving.paged import PagedContinuousBatcher as JaxPaged
 from tpushare_torch.models import transformer as ttf
 from tpushare_torch.models.bridge import params_from_numpy
-from tpushare_torch.serving import llm
+from tpushare_torch.serving import continuous, llm
 from tpushare_torch.serving.continuous import ContinuousService
 from tpushare_torch.serving.generate import generate
 from tpushare_torch.serving.paged import PagedContinuousBatcher
@@ -304,10 +304,10 @@ def test_storage_info_and_refusals(model):
                           device="cpu", prefix_cache=True)
 
 
-def test_prefix_cache_through_the_service(model):
+def test_prefix_cache_through_the_service(model, monkeypatch):
+    monkeypatch.setattr(continuous, "PREFILL_CHUNK", P)
     svc = ContinuousService(model, _cfg(), n_slots=2, page_size=P,
-                            device="cpu", prefill_chunk=P,
-                            prefix_cache=True).start()
+                            device="cpu", prefix_cache=True).start()
     try:
         reqs = [(SYSTEM + [50, 51], 8), (SYSTEM + [60], 10),
                 ([7, 7, 7, 7, 7], 6), (SYSTEM + [50, 51], 8)]

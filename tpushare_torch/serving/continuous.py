@@ -7,12 +7,13 @@ forward, each at its own depth; finished slots free at once and new
 requests join mid-flight.
 
 The storage is pluggable through the hooks ``_init_storage``,
-``_reserve``/``_release``, ``_prefill_into`` and ``_step``.  This class
-is the DENSE storage: one row of ``transformer.init_kv_caches`` a slot,
-``[L, n_slots, Hkv, T, D]``, T = max_seq, or for a sliding-window config
-a ROLLING ring of ``window`` slots a row (``rolling_slots``, AUTO on),
-read through ``transformer.cached_attention`` in plain PyTorch as the JAX
-package reads it in XLA.  The paged pool
+``_reserve``/``_release``, ``_prefill_into``, ``_round_operand`` and
+``_decode_logits``.  This class is the DENSE storage: one row of
+``transformer.init_kv_caches`` a slot, ``[L, n_slots, Hkv, T, D]``,
+T = max_seq, or for a sliding-window config a ROLLING ring of ``window``
+slots a row (``rolling_slots``, AUTO on), read through
+``transformer.cached_attention`` in plain PyTorch as the JAX package
+reads it in XLA.  The paged pool
 (:class:`tpushare_torch.serving.paged.PagedContinuousBatcher`) overrides
 the hooks.
 
@@ -152,36 +153,6 @@ def _prefill_chunk(params, tokens, caches, slot: int, pos: int,
 
 
 @torch.inference_mode()
-def _tick(params, tokens, caches, lengths, temps, generators, tks, tps,
-          cfg, key_bound: Optional[int] = None):
-    """Every slot one token: tokens [B, 1] at ``lengths`` [B]; returns
-    the next tokens [B].  ``key_bound``: see ``forward_cached``."""
-    logits, _ = transformer.forward_cached(params, tokens, cfg, caches,
-                                           lengths, key_bound=key_bound)
-    return _sample_next(logits[:, 0], temps, generators, tks, tps)
-
-
-@torch.inference_mode()
-def _decode_scan(params, tokens, caches, lengths, temps, generators, tks,
-                 tps, incs, cfg, n: int, key_bound: Optional[int] = None):
-    """``n`` decode steps, each the forward and sampler of :func:`_tick`;
-    returns the tokens [B, n].  ``incs`` [B] is each row's length step:
-    1 for a row decoding at the start, 0 for the others (empty or
-    mid-prefill), which write their one garbage K/V at the same position
-    every step.  A wandering write at position q would land in ring slot
-    q % W and clobber the key of q - W that a mid-prefill row still
-    attends; a write at exactly the aimed position is overwritten by that
-    row's next chunk before any query attends it."""
-    out = []
-    for _ in range(n):
-        tokens = _tick(params, tokens, caches, lengths, temps, generators,
-                       tks, tps, cfg, key_bound)[:, None]
-        out.append(tokens)
-        lengths = lengths + incs
-    return torch.cat(out, dim=1)
-
-
-@torch.inference_mode()
 def _tick_mixed(params, p_tokens, p_slots, p_pos, p_last, act_rows,
                 act_slots, caches, cfg, key_bound: Optional[int]):
     """The prefill half of a mixed round: the pending chunks p_tokens
@@ -246,6 +217,10 @@ class ContinuousBatcher:
         self._prefill_cursor = 0
         self._next_id = 0
         self.completed: Dict[int, List[int]] = {}
+        #: request id -> when its slot activated (its prompt prefilled and
+        #: its first token sampled; ``time.perf_counter``), kept like
+        #: ``completed`` until the caller takes it
+        self.activated_at: Dict[int, float] = {}
         #: forwards run so far: prefill (whole prompts, chunks and mixed
         #: blocks) and decode steps; and the prompt tokens prefilled (a
         #: cached prefix's are not)
@@ -294,18 +269,40 @@ class ContinuousBatcher:
             return None
         return int(lengths.max()) + n_steps
 
-    def _step(self, tokens, lengths, temps, generators, top_ks, top_ps):
-        """One decode step of every slot; returns the next tokens [B]."""
-        return _tick(self.params, tokens, self.caches, lengths, temps,
-                     generators, top_ks, top_ps, self.cfg,
-                     self._read_bound(lengths, 1))
+    def _round_operand(self, lengths, n_steps: int):
+        """What every decode step of a round reads unchanged: a
+        full-size row's read bound (:meth:`_read_bound`)."""
+        return self._read_bound(lengths, n_steps)
 
+    def _decode_logits(self, tokens, lengths, operand):
+        """One decode forward of every slot, tokens [B, 1] at ``lengths``
+        [B]; returns the logits [B, V]."""
+        logits, _ = transformer.forward_cached(self.params, tokens, self.cfg,
+                                               self.caches, lengths,
+                                               key_bound=operand)
+        return logits[:, 0]
+
+    @torch.inference_mode()
     def _step_n(self, tokens, lengths, temps, generators, top_ks, top_ps,
                 incs, n_steps: int):
-        """``n_steps`` decode steps; returns the tokens [B, n_steps]."""
-        return _decode_scan(self.params, tokens, self.caches, lengths, temps,
-                            generators, top_ks, top_ps, incs, self.cfg,
-                            n_steps, self._read_bound(lengths, n_steps))
+        """``n_steps`` decode steps, each a forward and the sampler, over
+        one round operand; returns the tokens [B, n_steps].  ``incs`` [B]
+        is each row's length step: 1 for a row decoding at the start, 0
+        for the others (empty or mid-prefill), which write their one
+        garbage K/V at the same position every step.  A wandering write at
+        position q would land in ring slot q % W (on the paged ring, the
+        lane of q - held * page) and clobber a key a mid-prefill row still
+        attends; a write at exactly the aimed position is overwritten by
+        that row's next chunk before any query attends it."""
+        operand = self._round_operand(lengths, n_steps)
+        out = []
+        for _ in range(n_steps):
+            tokens = _sample_next(
+                self._decode_logits(tokens, lengths, operand), temps,
+                generators, top_ks, top_ps)[:, None]
+            out.append(tokens)
+            lengths = lengths + incs
+        return torch.cat(out, dim=1)
 
     def _prefill_chunk_into(self, slot: int, padded_tokens, pos: int,
                             last_idx: int):
@@ -333,8 +330,9 @@ class ContinuousBatcher:
                            bound)
 
     def _mixed_chunk_len(self, chunk: int) -> int:
-        """The mixed round's fixed prefill-window width on this storage
-        (the paged pool rounds it to a page multiple)."""
+        """The prefill-window width of chunked admission and of the mixed
+        round on this storage (the paged pool rounds it to a page
+        multiple)."""
         return max(1, chunk)
 
     def storage_info(self) -> dict:
@@ -421,9 +419,11 @@ class ContinuousBatcher:
         later :meth:`advance_prefill` or :meth:`tick_mixed` calls, so a
         long prompt never stalls decoding slots for more than one chunk's
         forward.  Same validation and backpressure as :meth:`admit`, and
-        the same streams."""
+        the same streams.  The storage sizes the window
+        (:meth:`_mixed_chunk_len`)."""
         if chunk < 1:
             raise ValueError("chunk must be >= 1")
+        chunk = self._mixed_chunk_len(chunk)
         slot = self._claim(prompt, max_new_tokens, top_k, top_p)
         if slot is None:
             return None
@@ -455,6 +455,7 @@ class ContinuousBatcher:
                 if rich else None)[0])
         else:
             first = int(torch.argmax(logits_v))
+        self.activated_at[rid] = time.perf_counter()
         remaining = max_new_tokens - 1
         output = list(prompt) + [first]
         self.slots[slot] = _Slot(request_id=rid, length=len(prompt),
@@ -555,7 +556,8 @@ class ContinuousBatcher:
         """One decode step for all active slots; returns #active before."""
         if not self.slots:
             return 0
-        nxt = self._step(*self._slot_operands()).tolist()
+        nxt = self._step_n(*self._slot_operands(), self._decode_incs(),
+                           1)[:, 0].tolist()
         self.decode_steps += 1
         n_active = len(self.slots)
         for i in list(self.slots):
@@ -704,6 +706,13 @@ class ContinuousBatcher:
         raise RuntimeError("batcher did not drain")
 
 
+#: the service's prefill window (the paged pool rounds it to a page
+#: multiple) and the fused decode steps of a round: the reference's
+#: defaults
+PREFILL_CHUNK = 64
+DECODE_CHUNK = 8
+
+
 @dataclasses.dataclass
 class _Request:
     prompt: List[int]
@@ -715,7 +724,6 @@ class _Request:
     top_p: float
     sink: "queue.Queue"
     submitted: float
-    first_token: float = 0.0
 
 
 class ContinuousService:
@@ -726,44 +734,38 @@ class ContinuousService:
     ``page_size`` > 0 serves from the paged pool, 0 from the dense slot
     storage (rolling rows for a sliding-window config).
 
-    Every storage runs the reference's loop: admission streams a prompt
-    ``prefill_chunk`` tokens at a time (``admit_chunked``; the paged pool
-    rounds the chunk to a page multiple).  While anything prefills, a
-    round is one MIXED step (``tick_mixed``: the pending chunks of up to
-    ``prefill_budget // prefill_chunk`` slots as one prefill forward,
-    then ``prefill_decode_chunk`` fused decode steps), or with
+    Admission looks at what it would stall.  A pass that starts with no
+    slot decoding admits every request it takes whole (``admit``: one
+    prefill forward a prompt, nothing waits behind it but the pass's own
+    new slots); a pass that starts while slots decode streams each prompt
+    ``PREFILL_CHUNK`` tokens at a time (``admit_chunked``), so that no
+    decoding slot waits more than one window's forward.  While anything
+    prefills, a round is one MIXED step (``tick_mixed``: the pending
+    windows of up to ``prefill_budget // PREFILL_CHUNK`` slots as one
+    prefill forward, then ``DECODE_CHUNK`` fused decode steps), or with
     ``mixed_step=False`` the sequential ``advance_prefill`` then
-    ``tick_fused`` (the same streams); otherwise ``decode_chunk`` fused
-    steps (``tick_fused``; 1 is single ``tick``s).  The defaults are the
-    reference's."""
+    ``tick_fused`` (the same streams); otherwise ``DECODE_CHUNK`` fused
+    steps (``tick_fused``)."""
 
     def __init__(self, params, cfg: transformer.ModelConfig, n_slots: int,
                  page_size: int = 16,
                  n_pages: Optional[int] = None, device=None,
                  pool_bytes: Optional[int] = None, mesh=None,
-                 prefill_chunk: int = 64, decode_chunk: int = 8,
-                 prefill_decode_chunk: Optional[int] = None,
                  mixed_step: bool = True,
                  prefill_budget: Optional[int] = None,
                  prefix_cache: bool = False):
         from .paged import PagedContinuousBatcher
 
         self.mesh = mesh
-        self._prefill_chunk = max(1, prefill_chunk)
-        self._decode_chunk = max(1, decode_chunk)
-        self._prefill_decode_chunk = max(
-            1, prefill_decode_chunk if prefill_decode_chunk is not None
-            else self._decode_chunk)
         self._mixed_step = bool(mixed_step)
         self._prefill_budget = (int(prefill_budget)
                                 if prefill_budget is not None
-                                else 2 * self._prefill_chunk)
+                                else 2 * PREFILL_CHUNK)
         if page_size > 0:
             self._batcher = PagedContinuousBatcher(
                 params, cfg, n_slots, page_size=page_size, n_pages=n_pages,
                 device=device, pool_bytes=pool_bytes, mesh=mesh,
-                max_prefill_chunk=self._prefill_chunk,
-                prefix_cache=prefix_cache)
+                max_prefill_chunk=PREFILL_CHUNK, prefix_cache=prefix_cache)
         else:
             if n_pages or pool_bytes:
                 raise ValueError("n_pages and pool_bytes size a paged pool; "
@@ -773,18 +775,6 @@ class ContinuousService:
                                  "pass page_size too")
             self._batcher = ContinuousBatcher(params, cfg, n_slots,
                                               device=device, mesh=mesh)
-        # a request's first token comes when its slot activates (the
-        # prompt's last chunk prefilled, the first token sampled), rounds
-        # after its admission: the hook stamps it there
-        activate = self._batcher._activate
-
-        def timed_activate(slot, rid, *rest):
-            req = self._inflight.get(rid)
-            if req is not None:          # a request of this service's
-                req.first_token = time.perf_counter()
-            return activate(slot, rid, *rest)
-
-        self._batcher._activate = timed_activate
         self._lock = threading.Lock()
         self._waiting: "collections.deque[_Request]" = collections.deque()
         self._inflight: Dict[int, _Request] = {}      # loop thread only
@@ -796,8 +786,11 @@ class ContinuousService:
         #: and to its last, and its generated tokens
         self.timings: "collections.deque[dict]" = collections.deque(
             maxlen=1024)
-        #: rounds the loop has run (mixed, sequential or decode-only)
+        #: rounds the loop has run (mixed, sequential or decode-only), and
+        #: the requests it admitted whole and chunked
         self.rounds = 0
+        self.admitted_whole = 0
+        self.admitted_chunked = 0
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tpushare-torch-service")
 
@@ -845,7 +838,9 @@ class ContinuousService:
         b = self._batcher
         return {"slots": b.n_slots, "active": len(b.slots),
                 "prefilling": len(b.prefilling), "queued": queued,
-                "rounds": self.rounds, "prefills": b.prefills,
+                "rounds": self.rounds, "admitted_whole": self.admitted_whole,
+                "admitted_chunked": self.admitted_chunked,
+                "prefills": b.prefills,
                 "decode_steps": b.decode_steps,
                 "prefill_tokens": b.prefill_tokens}
 
@@ -853,55 +848,59 @@ class ContinuousService:
         return self._batcher.storage_info()
 
     def _admit_waiting(self) -> None:
-        """Admit queued requests by ``admit_chunked`` while slots and
-        storage allow; a refused one goes back to the FRONT of the
+        """Admit queued requests while slots and storage allow: whole if
+        no slot was decoding when the pass began, else by
+        ``admit_chunked``.  A refused one goes back to the FRONT of the
         queue."""
         b = self._batcher
+        whole = not b.slots
         while b.free_slots():
             with self._lock:
                 if not self._waiting:
                     return
                 req = self._waiting.popleft()
-            rid = b.admit_chunked(
-                req.prompt, req.max_new, temperature=req.temperature,
-                seed=req.seed, chunk=self._prefill_chunk, eos_id=req.eos_id,
-                top_k=req.top_k, top_p=req.top_p)
+            kw = dict(temperature=req.temperature, seed=req.seed,
+                      eos_id=req.eos_id, top_k=req.top_k, top_p=req.top_p)
+            if whole:
+                rid = b.admit(req.prompt, req.max_new, **kw)
+            else:
+                rid = b.admit_chunked(req.prompt, req.max_new,
+                                      chunk=PREFILL_CHUNK, **kw)
             if rid is None:                     # storage backpressure
                 with self._lock:
                     self._waiting.appendleft(req)
                 return
+            if whole:
+                self.admitted_whole += 1
+            else:
+                self.admitted_chunked += 1
             self._inflight[rid] = req
 
     def _deliver(self) -> None:
         b = self._batcher
         for rid in [r for r in b.completed if r in self._inflight]:
             out = b.completed.pop(rid)
+            first = b.activated_at.pop(rid)
             req = self._inflight.pop(rid)
             now = time.perf_counter()
             self.timings.append({
-                "ttft_s": req.first_token - req.submitted,
+                "ttft_s": first - req.submitted,
                 "total_s": now - req.submitted,
                 "new_tokens": len(out) - len(req.prompt)})
             req.sink.put_nowait(out)
 
     def _round(self) -> None:
-        """One round of the reference's loop (see the class docstring)."""
+        """One round of the loop (see the class docstring)."""
         b = self._batcher
         if b.prefilling:
             if self._mixed_step:
-                b.tick_mixed(self._prefill_decode_chunk,
-                             chunk=self._prefill_chunk,
+                b.tick_mixed(DECODE_CHUNK, chunk=PREFILL_CHUNK,
                              budget=self._prefill_budget)
             else:
                 b.advance_prefill()
-                if self._prefill_decode_chunk > 1:
-                    b.tick_fused(self._prefill_decode_chunk)
-                else:
-                    b.tick()
-        elif self._decode_chunk > 1:
-            b.tick_fused(self._decode_chunk)
+                b.tick_fused(DECODE_CHUNK)
         else:
-            b.tick()
+            b.tick_fused(DECODE_CHUNK)
         self.rounds += 1
 
     def _loop(self) -> None:

@@ -62,7 +62,7 @@ import torch
 from ..models import transformer
 from ..ops.attention import tp_degree
 from ..ops.quant import kv_cache_bytes
-from .continuous import ContinuousBatcher, _sample_next
+from .continuous import ContinuousBatcher
 
 
 @dataclasses.dataclass
@@ -177,28 +177,12 @@ class PagedContinuousBatcher(ContinuousBatcher):
                 f"request needs {need} pages but the pool holds only "
                 f"{self.n_pages - 1} usable pages")
 
-    def admit_chunked(self, prompt: List[int], max_new_tokens: int,
-                      temperature: float = 0.0, seed: int = 0,
-                      chunk: int = 64, eos_id: Optional[int] = None,
-                      top_k: int = 0, top_p: float = 1.0) -> Optional[int]:
-        """Chunked admission with the window rounded UP to a page multiple
-        (paged writes are whole pages: ``pos`` stays a page multiple, and
-        so does the max_seq clamp), and on a windowed ring clamped to
-        ``max_prefill_chunk``, the chunk its margin is sized for.  A chunk
-        below 1 raises in the base class."""
-        if chunk >= 1:
-            chunk = -(-chunk // self.page_size) * self.page_size
-            if transformer.wants_rolling(self.cfg):
-                chunk = min(chunk, self.max_prefill_chunk)
-        return super().admit_chunked(prompt, max_new_tokens,
-                                     temperature=temperature, seed=seed,
-                                     chunk=chunk, eos_id=eos_id,
-                                     top_k=top_k, top_p=top_p)
-
     def _mixed_chunk_len(self, chunk: int) -> int:
-        """The mixed round's window: rounded UP to a page multiple and, on
-        a windowed ring, clamped into its prefill margin (the rounding
-        :meth:`admit_chunked` applies)."""
+        """The prefill window of chunked admission and of the mixed round:
+        rounded UP to a page multiple (paged writes are whole pages, so
+        ``pos`` stays a page multiple, and so does the max_seq clamp) and,
+        on a windowed ring, clamped to ``max_prefill_chunk``, the chunk
+        its margin is sized for."""
         c = -(-max(1, chunk) // self.page_size) * self.page_size
         if transformer.wants_rolling(self.cfg):
             c = min(c, self.max_prefill_chunk)
@@ -400,14 +384,18 @@ class PagedContinuousBatcher(ContinuousBatcher):
         start = self._prefill_start(slot)
         if start or (transformer.wants_rolling(self.cfg)
                      and len(prompt) > span):
-            # the chunk body in windows of a fixed width (max_prefill_chunk,
-            # or what is left of max_seq), each written and attended before
-            # the next, when a cached prefix covers the prompt's head (a
-            # whole-prompt walk would rewrite the registry's pages) or the
-            # prompt outruns its windowed ring
+            # the chunk body from `start`.  Past a cached prefix (a
+            # whole-prompt walk would rewrite the registry's pages): the
+            # rest as ONE window rounded up to whole pages, its padded
+            # tail inside the reservation.  A prompt that outruns its
+            # windowed ring (never cached): windows of a fixed width
+            # (max_prefill_chunk, or what is left of max_seq), each
+            # written and attended before the next
             pos = start
             while pos < len(prompt):
-                width = min(self.max_prefill_chunk, self.cfg.max_seq - pos)
+                width = (-(-(len(prompt) - pos) // self.page_size)
+                         * self.page_size if start else
+                         min(self.max_prefill_chunk, self.cfg.max_seq - pos))
                 piece = prompt[pos:pos + width]
                 tokens = torch.zeros((1, width), dtype=torch.long,
                                      device=self.device)
@@ -424,20 +412,17 @@ class PagedContinuousBatcher(ContinuousBatcher):
             mesh=self.mesh)
         return logits[0]      # [V]: the prompt's last-position logits
 
-    def _step(self, tokens, lengths, temps, generators, top_ks, top_ps):
-        nxt, self.pools = _tick(self.params, tokens, self.pools,
-                                self._table(self.page_table), lengths, temps,
-                                generators, top_ks, top_ps, self.cfg,
-                                self.mesh)
-        return nxt
+    def _round_operand(self, lengths, n_steps: int):
+        """The page table on the device, copied once a round and fixed
+        for it (a reservation is worst case at admission, so no slot
+        needs a new page mid-round)."""
+        return self._table(self.page_table)
 
-    def _step_n(self, tokens, lengths, temps, generators, top_ks, top_ps,
-                incs, n_steps: int):
-        toks, self.pools = _decode_scan(
-            self.params, tokens, self.pools, self._table(self.page_table),
-            lengths, temps, generators, top_ks, top_ps, incs, self.cfg,
-            n_steps, self.mesh)
-        return toks
+    def _decode_logits(self, tokens, lengths, table):
+        logits, self.pools = transformer.forward_paged_decode(
+            self.params, tokens, self.cfg, self.pools, table, lengths,
+            mesh=self.mesh)
+        return logits[:, 0]
 
     def _prefill_chunk_into(self, slot: int, padded_tokens, pos: int,
                             last_idx: int):
@@ -471,36 +456,3 @@ class PagedContinuousBatcher(ContinuousBatcher):
             mesh=self.mesh)
         return logits
 
-
-# ---------------------------------------------------------------------------
-# The paged pool's decode programs (the reference's ``_tick`` and
-# ``_decode_scan``; plain functions, as in ``continuous``)
-# ---------------------------------------------------------------------------
-@torch.inference_mode()
-def _tick(params, tokens, pools, table, lengths, temps, generators, tks,
-          tps, cfg, mesh):
-    """Every slot one token through the pool: tokens [B, 1] at ``lengths``
-    [B]; returns (the next tokens [B], pools)."""
-    logits, pools = transformer.forward_paged_decode(
-        params, tokens, cfg, pools, table, lengths, mesh=mesh)
-    return _sample_next(logits[:, 0], temps, generators, tks, tps), pools
-
-
-@torch.inference_mode()
-def _decode_scan(params, tokens, pools, table, lengths, temps, generators,
-                 tks, tps, incs, cfg, n: int, mesh):
-    """``n`` decode steps of :func:`_tick` over ONE page table, fixed for
-    the round (a reservation is worst-case at admission, so no slot needs
-    a new page mid-round); returns (tokens [B, n], pools).  ``incs`` [B]
-    freezes the rows that are not decoding at their aimed garbage
-    position: on a windowed page ring a wandering write at q would
-    recycle the lane of q - held * page, still inside a mid-prefill row's
-    window."""
-    out = []
-    for _ in range(n):
-        nxt, pools = _tick(params, tokens, pools, table, lengths, temps,
-                           generators, tks, tps, cfg, mesh)
-        tokens = nxt[:, None]
-        out.append(tokens)
-        lengths = lengths + incs
-    return torch.cat(out, dim=1), pools
