@@ -38,7 +38,11 @@ CUDA toolkit.  Phases, each printing one JSON line:
    m, l), and the stripes merged against the unstriped K2 over the same
    keys; each entry point's device time by the profiler with the kernels
    it launched a call and, at decode, the split count the wrapper gave
-   the timed launches; then the decode
+   the timed launches; then K2 at the tp phase's per-shard shape (8
+   rows of 2000 tokens, 16 q and 4 kv heads: both arms against the plain
+   version, the decode arm timed against its bytes bound) and
+   ``sharded_paged_decode_attention`` over a pool split on 2 tp shards
+   against the whole pool's plain read; then the decode
    arm's edges, all four entry points (a 1-token context, contexts at
    split boundaries +-1 key, a window of 256 whose leading splits are
    empty, a table wider than every context, a stripe whose rows keep no
@@ -138,7 +142,23 @@ CUDA toolkit.  Phases, each printing one JSON line:
     the unstriped K2 never); first-step logits of the greedy prompts
     against an unstriped pool of 700 pages on the same weights; a striped
     and an unstriped decode step's wall; then the same on int8 pools;
-13. prefix: Llama-2-7B at full width and depth (bf16 random weights,
+13. tp: Llama-3-8B at full width and depth served tensor-parallel on a
+    mesh of two tp shards on the one card (``make_mesh({"tp": 2},
+    devices=[cuda:0, cuda:0])``: the Megatron split of the weights, the
+    pool's kv heads half a shard): the server phase's four requests
+    through a ``ContinuousService`` over a 700-page bf16 pool, an int8
+    pool and a ``{"tp": 2, "sp": 2}`` mesh of four shards, the counters
+    zeroed just before each load and read just after (K2 twice per layer
+    of every paged forward, four times striped under tp x sp, every
+    launch at 16 q and 4 kv heads); the greedy prompts' first-step and
+    first decode-step logits against a tp = 1 pool on the same weights,
+    within LOGIT_TOL or 1.25x that pool's K2-against-gather distance;
+    dense rows at tp = 2 (first-step logits against tp = 1);
+    ``forward(mesh=)`` at a 2000-token prompt (K1 twice per layer, logits
+    at every position against tp = 1 within LOGIT_TOL or 1.25x the tp = 1
+    forward's distance from itself on the reference attention); a decode step of 8 rows at tp = 2 and at tp = 1
+    (wall, busy, ops), each part's seconds;
+14. prefix: Llama-2-7B at full width and depth (bf16 random weights,
     32 heads over 32 kv heads: K2 at n_rep = 1) on
     ``LLMServer(n_slots=8, page_size=16, prefix_cache=True)`` (8 x 256
     pages + 1, 17.2 GB): four conversations, each a 1,024-token system
@@ -151,7 +171,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     against without it (bf16 within LOGIT_TOL or 1.25x the
     K2-against-gather distance, f32 through the gather read within
     F32_LOGIT_TOL); the turns' TTFT both ways;
-14. migrate: the session lifecycle on Llama-3-8B at full width and
+15. migrate: the session lifecycle on Llama-3-8B at full width and
     depth (bf16 random weights): four greedy sessions of 100-2000 tokens
     and a sampled one (temperature 0.8) moved, after 9 decode steps,
     from one paged batcher to another on the same weights, on a bf16 and
@@ -172,7 +192,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     request on A finished by B's ``/migrate_in``, B's ``/metrics``
     migration families moved, and in f32 the drained streams equal the
     undrained run's (the f32 checks on the model's first 16 layers);
-15. adapters: multi-adapter LoRA serving on Llama-3-8B at full width and
+16. adapters: multi-adapter LoRA serving on Llama-3-8B at full width and
     depth (bf16 random weights, synthetic rank-8 adapters drawn from
     their names): 8 base rows of 256-2000 tokens, 32 new each, through a
     batcher with a pool of 4 adapters against a pool-less one, on the
@@ -197,7 +217,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     pool-less receiver as a config mismatch; and a decode step's wall,
     busy time and ops with the mixed rows against the same rows without
     a pool (``profile_decode``'s profiler);
-16. moe: mixture-of-experts serving at Mixtral-8x7B's widths (Mistral-7B's
+17. moe: mixture-of-experts serving at Mixtral-8x7B's widths (Mistral-7B's
     attention, 8 experts of d_ff 14,336, top-2, every layer routed;
     bf16 random seeded weights) and 16 of its 32 layers (45.1 GB of
     experts): the 16-layer Mistral-7B wrapped as ``n_experts=1`` (its FFN
@@ -217,7 +237,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     multiples of 8); a decode step's wall, busy time and ops (8 rows)
     beside the bytes bound, and a 2000-token admission's beside the
     routed and the evaluated FLOPs;
-17. grant: the server started as a pod is, by ``llm.start_server`` under
+18. grant: the server started as a pod is, by ``llm.start_server`` under
     the device plugin's env for a 14 GiB pod on an 80-unit card (the
     allocator capped at the fraction 0.175 before anything is built),
     Llama-3-8B at full width and depth with int8 weights (built one layer
@@ -240,7 +260,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     beside them one request's wall, the device time its guards attributed
     and the rounds' walls, and the profiler's busy time for the same
     request again; then the fraction goes back to 1;
-18. train, after the serving memory is freed: ``Trainer`` on
+19. train, after the serving memory is freed: ``Trainer`` on
     Llama-3-8B at full width and depth (random seeded weights, AdamW,
     ``remat="layer"``, ``head_chunk=512``, lr 3e-4), four steps on one
     seeded [1, 2049] batch; the counters are zeroed just before and read
@@ -254,7 +274,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     peak memory; ``merge_lora``'s bf16 weights against the loraized
     model's logits within 2x the distance that rounding the int8 base to
     bf16 weights moves them;
-19. bert: K1 at the encoder shape (B = 32, 12 heads, S = 128, D = 64,
+20. bert: K1 at the encoder shape (B = 32, 12 heads, S = 128, D = 64,
     non-causal) and at S = 512 against its plain version; then
     BERT-base and DistilBERT at full width and depth (random
     seeded bf16 weights) through ``InferenceEngine``: K1 launched once a
@@ -269,7 +289,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     operations split into GEMMs, K1 and the rest as its
     ``batch_profile``: that profile is taken in phase 3, early, where
     the profiler keeps every launch of a window;
-20. cotenancy: ``tpushare_torch.probe_cotenancy``'s sections, tenants as
+21. cotenancy: ``tpushare_torch.probe_cotenancy``'s sections, tenants as
     worker processes under the allocation env: BERT-base and DistilBERT
     alone at 8 and 4 GiB, two BERT-base tenants at 8 GiB, four
     DistilBERT tenants at 4 GiB, and four 4 GiB tenants allocating
@@ -291,6 +311,8 @@ K1 with ``moe_launches`` and ``qlora_launches``, K3/K4 with
 ``qlora_launches``), and
 ``paged_attn_verify`` at the verify shape with the spec phase's verify
 launches, and beside them all its S > 1 launches and the prefills' share;
+``paged_decode_tp_shard`` at the tp phase's per-shard shape with its bf16
+load's decode launches and its int8 and tp x sp ones beside them;
 ``device_ms``,
 the kernel's own time by the
 profiler, and for K1
@@ -815,6 +837,7 @@ def phase_k2(torch, flush):
     del args
     torch.cuda.empty_cache()
     res["verify"] = ver
+    res["tp_shard"] = _tp_k2_shard(torch, attn, flush)
     res["decode_edges"] = _k2_decode_edges(torch, attn)
     res["prefill_edges"] = _k2_prefill_edges(torch, attn)
     res["verify_edges"] = _k2_verify_edges(torch, attn)
@@ -2805,6 +2828,308 @@ def phase_sp_stripe(torch, card: str):
     return res
 
 
+#: the tp phase: a pool of 700 pages (every shard its half of the kv
+#: heads of every page), the decode step's 8 rows and the per-shard K2
+TP_PAGES = 700
+TP_STEP_LENS = (256, 512, 768, 1000, 1250, 1500, 1750, 2000)
+TP_FORWARD_LEN = 2000
+
+
+@contextlib.contextmanager
+def _launch_heads():
+    """Every K2 and K1 launch in the block, counted by (q heads, kv
+    heads) of the launch: ``{"k2": Counter, "k1": Counter}``."""
+    import collections
+
+    from tpushare_torch.ops import attention as attn
+
+    seen = {"k2": collections.Counter(), "k1": collections.Counter()}
+    k2, k1 = attn.launch_k2, attn.flash_attention
+
+    def spy_k2(cuda, q, leaves, *rest, **kw):
+        seen["k2"][(q.shape[1], leaves[0].shape[1])] += 1
+        return k2(cuda, q, leaves, *rest, **kw)
+
+    def spy_k1(q, k, v, *rest, **kw):
+        seen["k1"][(q.shape[1], k.shape[1])] += 1
+        return k1(q, k, v, *rest, **kw)
+
+    attn.launch_k2, attn.flash_attention = spy_k2, spy_k1
+    try:
+        yield seen
+    finally:
+        attn.launch_k2, attn.flash_attention = k2, k1
+
+
+def _tp_serve(torch, params, cfg, mesh, prompts, sampled) -> dict:
+    """The server phase's four requests (the last sampled) through a
+    ``ContinuousService`` over a ``TP_PAGES`` paged pool on ``mesh``, the
+    launch counters zeroed just before the load and read just after, each
+    K2 launch's head counts beside them.  Returns the numbers and the
+    service's batcher, stopped."""
+    from tpushare_torch.ops import attention as attn
+    from tpushare_torch.serving.continuous import ContinuousService
+
+    k2 = attn.paged_decode_attention
+    counters = tuple(f"launches{arm}{kind}" for arm in ("", "_decode")
+                     for kind in attn.K2_KINDS)
+    svc = ContinuousService(params, cfg, 8, page_size=16, n_pages=TP_PAGES,
+                            mesh=mesh)
+    svc.start()
+    try:
+        _zero_launch_counts()
+        with _launch_heads() as heads:
+            t0 = time.perf_counter()
+            sinks = [svc.submit(p, 32, **(sampled if i == 3 else {}))
+                     for i, p in enumerate(prompts)]
+            outs = [s.get(timeout=600) for s in sinks]
+            wall = time.perf_counter() - t0
+        launches = {name: getattr(k2, name) for name in counters}
+        snap = svc.snapshot()
+        info = svc.storage_info()
+    finally:
+        svc.stop()
+    for i, o in enumerate(outs):
+        check(isinstance(o, list) and o[:len(prompts[i])] == prompts[i]
+              and len(o) == len(prompts[i]) + 32
+              and all(0 <= t < cfg.vocab for t in o),
+              f"tp: request {i} came back {str(o)[:200]}")
+    return svc._batcher, {
+        "launches": launches, "launch_heads": {
+            f"{h}q/{kv}kv": n for (h, kv), n in heads["k2"].items()},
+        "forwards": snap["prefills"] + snap["decode_steps"],
+        "prefills": snap["prefills"], "decode_steps": snap["decode_steps"],
+        "rounds": snap["rounds"], "generate_wall_s": wall,
+        "tokens_per_s": 32 * len(prompts) / wall,
+        "pool_bytes": info["pool_bytes"], "sp_shards": info["sp_shards"],
+        "sampled_tokens": outs[3][len(prompts[3]):]}
+
+
+def _tp_logits(torch, b, ref, noise_b, prompts) -> dict:
+    """The greedy prompts' first-step and first decode-step logits (the
+    step from the reference's argmax token) of batcher ``b`` against
+    ``ref``'s, and ``noise_b``'s (the gather read) against ``ref``'s: the
+    bf16 noise of this model; max abs differences."""
+    want = _first_logits(ref, prompts)
+    tokens = [int(w.argmax()) for w in want]
+    want_step = _step_logits(ref, prompts, tokens)
+    got = _first_logits(b, prompts) + _step_logits(b, prompts, tokens)
+    noise = (_first_logits(noise_b, prompts)
+             + _step_logits(noise_b, prompts, tokens))
+    check(all(torch.isfinite(g).all().item() for g in got),
+          "tp: logits not finite")
+    dist = [(g - w).abs().max().item()
+            for g, w in zip(got, want + want_step)]
+    gap = [(g - w).abs().max().item()
+           for g, w in zip(noise, want + want_step)]
+    return {"max_abs_err": dist, "kernel_vs_gather_max_abs_err": gap,
+            "limit": max(LOGIT_TOL, 1.25 * max(gap))}
+
+
+def _tp_k2_shard(torch, attn, flush) -> dict:
+    """K2 at the per-shard shape of Llama-3-8B at tp = 2 (B = 8 rows of a
+    2000-token context, 16 q and 4 kv heads, D = 128, bf16): the decode
+    arm held to its plain version and timed (events, the profiler) beside
+    its bytes bound; the S > 1 arm held at a 2000-token window of that
+    shape; and ``sharded_paged_decode_attention`` over a whole layer
+    pool split on a mesh of two tp shards on this card held to the whole
+    pool's plain read.  Timed in phase_k2, early, where the profiler
+    keeps every launch (after the tp phase's own profiles it saw no
+    kernel of the L2 flush)."""
+    from tpushare_torch import profile_k2
+    from tpushare_torch.parallel.mesh import make_mesh, shard_kv_storage
+
+    mesh = make_mesh({"tp": 2}, devices=["cuda:0", "cuda:0"])
+
+    contexts = [2000] * 8
+    args = profile_k2.paged_operands(contexts, 1, SEED + 21, hkv=4, h=16)
+    out = attn.paged_decode_attention(*args)
+    ref = attn._paged_plain(*args, None)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item() and err <= OUT_TOL,
+          f"tp: per-shard K2 decode arm {err} from its plain version")
+    flops, nbytes = profile_k2.read_cost(contexts, 1, False, hkv=4, h=16)
+    case = {"contexts": contexts, "S": 1, "H": 16, "Hkv": 4,
+            "max_abs_err": err, "flops": flops, "bytes": nbytes}
+    _time_k2(torch, attn, case, args, {}, 50, 5, flush)
+    del args, out, ref
+    pargs = profile_k2.paged_operands([2000], 2000, SEED + 22, hkv=4, h=16)
+    pout = attn.paged_decode_attention(*pargs)
+    pref = attn._paged_plain(*pargs, None)
+    torch.cuda.synchronize()
+    case["prefill_max_abs_err"] = (pout.float()
+                                   - pref.float()).abs().max().item()
+    check(case["prefill_max_abs_err"] <= OUT_TOL,
+          f"tp: per-shard K2 S > 1 arm {case['prefill_max_abs_err']}")
+    del pargs, pout, pref
+    q, kp, vp, table, positions = profile_k2.paged_operands(
+        contexts, 1, SEED + 23)
+    shards = shard_kv_storage((kp[None], vp[None]), mesh)
+    got = attn.sharded_paged_decode_attention(
+        q, [k[0] for k, _ in shards], [v[0] for _, v in shards], table,
+        positions, mesh)
+    want = attn._paged_plain(q, kp, vp, table, positions, None)
+    torch.cuda.synchronize()
+    case["sharded_max_abs_err"] = (got.float()
+                                   - want.float()).abs().max().item()
+    check(case["sharded_max_abs_err"] <= OUT_TOL,
+          f"tp: sharded K2 read {case['sharded_max_abs_err']} from the "
+          f"whole pool's plain read")
+    del q, kp, vp, shards, got, want
+    torch.cuda.empty_cache()
+    return case
+
+
+def phase_tp(torch, card: str):
+    """Tensor-parallel serving of Llama-3-8B at full width and depth on a
+    mesh of two tp shards on this one card (``make_mesh({"tp": 2},
+    devices=["cuda:0", "cuda:0"])``): the server phase's four requests
+    through a ``ContinuousService`` over a bf16 pool, an int8 pool and a
+    ``{"tp": 2, "sp": 2}`` mesh of four shards, the launch counters
+    zeroed just before each load and read just after: K2 twice a layer
+    of every paged forward at 16 q and 4 kv heads (four times, striped,
+    under tp x sp); the greedy prompts' first-step and first decode-step
+    logits held to a tp = 1 pool on the same weights within LOGIT_TOL or
+    1.25x that pool's own K2-against-gather distance.  Then the dense
+    rows at tp = 2 (first-step logits against tp = 1), ``forward(mesh=)``
+    at a 2000-token prompt (K1 twice a layer at 16 and 4 heads, the
+    logits at every position against tp = 1 within LOGIT_TOL or 1.25x the
+    tp = 1 forward's distance from itself on the reference attention), a
+    decode step of 8 rows at tp = 2 against tp = 1 (wall, busy, ops);
+    K2 at the per-shard shape is phase_k2's (``_tp_k2_shard``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpushare_torch.models import transformer
+    from tpushare_torch.ops import attention as attn
+    from tpushare_torch.parallel.mesh import make_mesh, shard_params
+    from tpushare_torch.serving.continuous import ContinuousBatcher
+    from tpushare_torch.serving.llm import build_model
+    from tpushare_torch.serving.paged import PagedContinuousBatcher
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    cfg, params = build_model("llama3-8b", seed=SEED, device="cuda")
+    _check_llama3_8b(cfg)
+    mesh = make_mesh({"tp": 2}, devices=["cuda:0", "cuda:0"])
+    mesh4 = make_mesh({"tp": 2, "sp": 2}, devices=["cuda:0"] * 4)
+    prompts, _ = _load_prompts(cfg)
+    greedy = prompts[:3]
+    sampled = {"temperature": 0.8, "top_k": 50, "seed": 7}
+    res = {"model": "llama3-8b", "card": card, "tp": 2,
+           "devices": [str(d) for d in mesh.devices],
+           "pages": TP_PAGES}
+    step_rng = np.random.default_rng(SEED + 24)
+    step_prompts = [step_rng.integers(0, cfg.vocab, n).tolist()
+                    for n in TP_STEP_LENS]
+    noise = {}
+    for name, m, kv in (("bf16", mesh, "bf16"), ("int8", mesh, "int8"),
+                        ("tp_sp", mesh4, "bf16")):
+        c = dataclasses.replace(cfg, kv_dtype=kv)
+        b, run = _tp_serve(torch, params, c, m, prompts, sampled)
+        n_shards = len(m.devices)
+        kind = ("_int8" if kv == "int8" else "") + (
+            "_striped" if name == "tp_sp" else "")
+        mine = (f"launches{kind}", f"launches_decode{kind}")
+        got = run["launches"]
+        check(got[mine[0]] + got[mine[1]]
+              == n_shards * cfg.n_layers * run["forwards"]
+              and run["forwards"] > 0 and got[mine[0]] > 0
+              and got[mine[1]] >= n_shards * cfg.n_layers
+              * run["decode_steps"],
+              f"tp {name}: K2 {got} for {run['forwards']} forwards "
+              f"({run['decode_steps']} decode steps)")
+        check(all(n == 0 for k, n in got.items() if k not in mine),
+              f"tp {name}: another K2 entry point ran: {got}")
+        check(run["launch_heads"] == {"16q/4kv": got[mine[0]]
+                                      + got[mine[1]]},
+              f"tp {name}: K2 launched at {run['launch_heads']}")
+        if name != "tp_sp":
+            ref = PagedContinuousBatcher(params, c, n_slots=8, page_size=16,
+                                         n_pages=TP_PAGES, device="cuda")
+            noise_b = PagedContinuousBatcher(
+                params, dataclasses.replace(c, attn_kernel="gather"),
+                n_slots=8, page_size=16, n_pages=TP_PAGES, device="cuda")
+            noise[kv] = (ref, noise_b)
+        ref, noise_b = noise[kv]
+        run["logits"] = _tp_logits(torch, b, ref, noise_b, greedy)
+        check(max(run["logits"]["max_abs_err"]) <= run["logits"]["limit"],
+              f"tp {name}: logits {run['logits']} past the limit")
+        if name == "bf16":
+            mark("bf16_load_and_logits")
+            res["step"] = {"tp2": _step_profile(b, step_prompts, steps=4),
+                           "tp1": _step_profile(ref, step_prompts,
+                                                steps=4)}
+        res[name] = run
+        mark(name)
+        del b
+        if name == "int8":
+            del noise["int8"], ref, noise_b
+        gc.collect()
+        torch.cuda.empty_cache()
+    bound = res["bf16"]["logits"]["limit"]
+    del noise
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dense = ContinuousBatcher(params, cfg, n_slots=2, mesh=mesh)
+    check(len(dense.caches) == 2 and transformer._kv_leaf(
+        dense.caches[0][0]).shape[2] == 4, "tp: dense rows not split")
+    got = _first_logits(dense, greedy)
+    del dense
+    dref = ContinuousBatcher(params, cfg, n_slots=2, device="cuda")
+    want = _first_logits(dref, greedy)
+    del dref
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    check(max(errs) <= bound, f"tp dense: first-step logits {errs} past "
+                              f"{bound}")
+    res["dense"] = {"max_abs_err": errs, "limit": bound}
+    mark("dense")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    split = shard_params(params, mesh, cfg)
+    tokens = torch.tensor([step_prompts[-1][:TP_FORWARD_LEN]],
+                          device="cuda")
+    with torch.inference_mode():
+        _zero_launch_counts()
+        with _launch_heads() as heads:
+            got = transformer.forward(split, tokens, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+        k1 = attn.flash_attention_lse.launches
+        want = transformer.forward(params, tokens, cfg)
+        err = (got - want).abs().max().item()
+        # the bf16 noise of this forward over the same 2000 positions: its
+        # attention through the reference instead of K1
+        use_flash = attn.use_flash
+        attn.use_flash = lambda q, k: False
+        try:
+            gap = (transformer.forward(params, tokens, cfg)
+                   - want).abs().max().item()
+        finally:
+            attn.use_flash = use_flash
+    limit = max(LOGIT_TOL, 1.25 * gap)
+    check(k1 == 2 * cfg.n_layers and dict(heads["k1"]) == {(16, 4): k1},
+          f"tp forward: K1 {k1} launches at {dict(heads['k1'])}")
+    check(torch.isfinite(got).all().item() and err <= limit,
+          f"tp forward: logits {err} from tp = 1, past {limit}")
+    res["forward"] = {"S": TP_FORWARD_LEN, "k1_launches": k1,
+                      "max_abs_err": err, "k1_vs_reference_max_abs_err": gap,
+                      "limit": limit}
+    del split, got, want, params
+    mark("forward")
+    res["part_s"] = parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 #: the prefix phase's chat load: four conversations, each a 1,024-token
 #: system prompt and a first user turn of its own length; the second turn
 #: sends the first turn's prompt, its 32-token reply and a new 64-token
@@ -4764,6 +5089,9 @@ def main() -> int:
         sps = run("sp_stripe", phase_sp_stripe, torch, dev["nvidia_smi"])
         gc.collect()
         torch.cuda.empty_cache()
+        tp = run("tp", phase_tp, torch, dev["nvidia_smi"])
+        gc.collect()
+        torch.cuda.empty_cache()
         run("prefix", phase_prefix, torch, dev["nvidia_smi"])
         gc.collect()
         torch.cuda.empty_cache()
@@ -4850,6 +5178,25 @@ def main() -> int:
         "library_ms": None, "device_ms": ver["device_ms"],
         "shape": "verify", "contexts": ver["contexts"], "S": ver["S"],
         "device_kernels": ver["kernels"], "stage": PREFILL_STAGE})
+    # K2's decode arm at the tp phase's per-shard shape (8 rows of 2000
+    # tokens, 16 q and 4 kv heads); launches from the tp phase's bf16
+    # load, every one at that head count
+    ks = k2["tp_shard"]
+    k2_rows.append({
+        "name": "paged_decode_tp_shard", "route": "cuda",
+        "source": "tpushare_torch/ops/csrc/paged_decode.cu",
+        "replaces": "tpushare/ops/attention.py:613",
+        "launches": tp["bf16"]["launches"]["launches_decode"],
+        "s_gt_1_launches": tp["bf16"]["launches"]["launches"],
+        "int8_launches": tp["int8"]["launches"]["launches_decode_int8"],
+        "tp_sp_launches": tp["tp_sp"]["launches"]["launches_decode_striped"],
+        "max_abs_err": ks["max_abs_err"], "ms": ks["ms"],
+        "kernel_ms": ks["ms"], "plain_ms": ks["plain_ms"],
+        "bound_ms": ks["bound_ms"], "bound_by": ks["bound_by"],
+        "library_ms": None, "device_ms": ks["device_ms"],
+        "shape": "decode, tp shard", "contexts": ks["contexts"],
+        "H": ks["H"], "Hkv": ks["Hkv"], "n_splits": ks["n_splits"],
+        "device_kernels": ks["kernels"], "stage": DECODE_STAGE})
     bwd_kernels = []
     for name, kern, line, outs in (("flash_bwd_dkv", "dkv", 180, "dk dv"),
                                    ("flash_bwd_dq", "dq", 248, "dq")):

@@ -219,7 +219,7 @@ def test_make_mesh_never_puts_stripes_on_a_shared_card_unasked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmesh.make_mesh({"sp": 2})
-    for axis in ("tp", "pp", "ep", "dp"):
+    for axis in ("pp", "ep", "dp"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tmesh.make_mesh({axis: 1}, devices=[CPU])
     m = tmesh.make_mesh({"sp": -1}, devices=[CPU] * 3)

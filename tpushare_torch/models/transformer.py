@@ -32,6 +32,19 @@ merged across stripes (``"kernel"``), or the stripes' gathers reassembled
 in global order (``"gather"``, bit-identical to the unstriped gather).
 The dense part of the forward runs on the mesh's first device.
 
+Tensor parallelism: under a mesh with a ``tp`` axis, params laid out by
+``parallel.mesh.shard_params`` (``params["layers"]`` one tree a tp shard,
+the Megatron split of :data:`TP_COL_LEAVES` / :data:`TP_ROW_LEAVES`) run
+:func:`_attn_ffn`'s per-shard body: shard t projects q/k/v with its
+column blocks (a :func:`local_cfg` of H/tp and Hkv/tp heads, whole GQA
+groups), attends over its own KV stores (K1 no-cache, K2 paged, the dense
+read on dense rows), and its ``wo`` and ``w_down`` row blocks give
+partial products that are summed on the first device (the JAX package's
+``psum``).  KV storage is one ``(k, v)`` pair a shard of the mesh,
+row-major: under tp x sp, shard (t, s) holds stripe s of tp shard t's
+heads.  A model the split does not fit (:func:`tp_splits`) runs as
+tp = 1 on the first device (:func:`serving_mesh`).
+
 Dense and rolling caches: :func:`forward` with ``kv_caches`` from
 :func:`init_kv_caches` (stacked ``[L, B, Hkv, T, D]`` stores, T = max_seq,
 or a window-sized ring for a sliding-window config) writes each step's
@@ -58,7 +71,7 @@ LoRA fine-tuning rides ``matmul_maybe_q``'s adapter branch: a loraized
 leaf ``{"w" | "q","s" | "q4","s", "a", "b", "scale"}`` is sliced per
 layer like any other dict leaf (``ops.lora``).
 
-Left for later slices: the tp/pp/ep mesh axes.
+Left for later slices: the pp and ep mesh axes (ROADMAP A.12).
 """
 
 from __future__ import annotations
@@ -78,8 +91,8 @@ from .. import default_device
 from ..ops import quant
 from ..ops.experts import moe_ffn
 from ..ops.lora import adapter_delta
-from ..ops.attention import (NEG_INF, attention, expand_kv, paged_gather,
-                             paged_decode_attention,
+from ..ops.attention import (NEG_INF, attention, expand_kv, on_card,
+                             paged_gather, paged_decode_attention,
                              sp_striped_paged_decode_attention,
                              striped_local_view, tp_degree)
 from ..ops.quant import matmul_maybe_q as _mm
@@ -189,6 +202,103 @@ def tiny(vocab: int = 256, d_model: int = 64, n_layers: int = 2,
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism (the mesh's tp axis)
+# ---------------------------------------------------------------------------
+#: the Megatron split: column-parallel projections take a block of their
+#: output dim (activations stay shard-local after them), row-parallel ones
+#: a block of their input dim (their partial products are summed)
+TP_COL_LEAVES = ("wq", "wk", "wv", "w_gate", "w_up")
+TP_ROW_LEAVES = ("wo", "w_down")
+
+
+def tp_splits(layers, cfg: ModelConfig, tp: int) -> bool:
+    """Does the model take the Megatron split over ``tp`` shards (the JAX
+    package's ``_composed_tp_ok``)?  tp > 1 dividing both head counts
+    (whole GQA groups a shard) and both feature dims, and every
+    projection a plain tensor: an int8 or int4 leaf's scales are not
+    split, so such a model keeps full-width weights.  ``layers``: the
+    stacked layer leaves, or ``shard_params``' tuple of shard trees."""
+    if tp <= 1:
+        return False
+    if (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_model % tp
+            or cfg.d_ff % tp):
+        return False
+    if isinstance(layers, tuple):
+        layers = layers[0]
+    return not any(isinstance(layers.get(n), dict)
+                   for n in TP_COL_LEAVES + TP_ROW_LEAVES)
+
+
+def local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """One tp shard's view of the config: H/tp and Hkv/tp heads at the
+    same head dim (d_model scales along); every other field as it is."""
+    if tp <= 1:
+        return cfg
+    return dataclasses.replace(cfg, d_model=cfg.d_model // tp,
+                               n_heads=cfg.n_heads // tp,
+                               n_kv_heads=cfg.n_kv_heads // tp)
+
+
+def serving_mesh(mesh, cfg: ModelConfig, layers):
+    """The mesh ``cfg``'s model runs on: ``mesh`` itself where the model
+    takes the tp split (:func:`tp_splits`) or the mesh has no tp axis,
+    else the mesh's tp = 0 row, the model run as tp = 1 on the first
+    device with its KV storage whole there (None when no axis remains).
+    The batchers lay their storage out on this mesh."""
+    tp = tp_degree(mesh)
+    if tp > 1 and not tp_splits(layers, cfg, tp):
+        sub = mesh.submesh(tp=0)
+        return sub if sub.axis_names else None
+    return mesh
+
+
+def _tp_setup(params, cfg: ModelConfig, mesh):
+    """(mesh, tp, the shard config) a forward runs with: the serving mesh
+    of ``mesh``, its tp degree and :func:`local_cfg`.  Under tp > 1 the
+    params must be ``shard_params``' layout."""
+    mesh = serving_mesh(mesh, cfg, params["layers"])
+    tp = tp_degree(mesh)
+    if tp > 1 and not isinstance(params["layers"], tuple):
+        raise ValueError("under a tp mesh the params must be laid out by "
+                         "parallel.mesh.shard_params")
+    return mesh, tp, local_cfg(cfg, tp)
+
+
+def _to(x, dev):
+    """A tensor, or a tuple of them, on ``dev`` (itself where it lies)."""
+    if isinstance(x, tuple):
+        return tuple(_to(v, dev) for v in x)
+    return x.to(dev)
+
+
+def _per_shard(x, mesh, tp: int) -> List:
+    """``x`` on each tp shard's device: ``[x]`` at tp = 1."""
+    if tp == 1:
+        return [x]
+    return [_to(x, mesh.device(tp=t)) for t in range(tp)]
+
+
+def _shard_meshes(mesh, tp: int) -> List:
+    """Each tp shard's own mesh, its sp stripes: ``[mesh]`` at tp = 1."""
+    if tp == 1:
+        return [mesh]
+    return [mesh.submesh(tp=t) for t in range(tp)]
+
+
+def _tp_sum(parts, x):
+    """The row-parallel partial products summed on ``x``'s device, in
+    ``x``'s dtype (the JAX package's ``psum``): one part is returned as
+    it is, the tp = 1 program; several f32 parts are added in f32 and
+    rounded once."""
+    if len(parts) == 1:
+        return parts[0]
+    acc = parts[0].to(x.device)
+    for p in parts[1:]:
+        acc = acc + p.to(x.device)
+    return acc.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
@@ -282,15 +392,25 @@ def param_count(params) -> int:
     return sum(t.numel() for t in quant.tensor_leaves(params))
 
 
-def _layers(params) -> List[Dict]:
+def _layers(params, tp: int = 1) -> List:
     """Per-layer views of the stacked ``[L, ...]`` leaves, taken with one
     ``torch.unbind`` per tensor (a quantized leaf's values and scales
     each): its backward is a single stack, where indexing ``v[l]`` would
-    write a zero-filled ``[L, ...]`` gradient per layer and leaf."""
+    write a zero-filled ``[L, ...]`` gradient per layer and leaf.  On
+    ``shard_params``' layout at tp > 1, a tuple of one view a shard per
+    layer; at tp = 1 (a model the split does not fit) tree 0's views."""
+    layers = params["layers"]
+    if isinstance(layers, tuple):
+        if tp > 1:
+            per = [_layers({"layers": tree}) for tree in layers]
+            return [tuple(views) for views in zip(*per)]
+        layers = layers[0]
     cols = {k: ({s: torch.unbind(t, 0) for s, t in v.items()}
                 if isinstance(v, dict) else torch.unbind(v, 0))
-            for k, v in params["layers"].items()}
-    n = params["layers"]["attn_scale"].shape[0]
+            for k, v in layers.items()}
+    first = next(iter(cols.values()))
+    n = len(next(iter(first.values())) if isinstance(first, dict)
+            else first)
     return [{k: ({s: t[l] for s, t in c.items()} if isinstance(c, dict)
                  else c[l]) for k, c in cols.items()} for l in range(n)]
 
@@ -378,6 +498,12 @@ def _adapter_layers(adapters, adapter_ids, n_layers: int, dtype) -> List:
     makes, the same values), then sliced by layer (views)."""
     if adapters is None:
         return [None] * n_layers
+    if isinstance(adapters, tuple):
+        # one pool a tp shard (``parallel.mesh.shard_adapter_pool``): a
+        # list of one operand a shard per layer
+        per = [_adapter_layers(a, adapter_ids, n_layers, dtype)
+               for a in adapters]
+        return [list(ops) for ops in zip(*per)]
     ids = adapter_ids.to(adapters["scale"].device).long()
     rows = {k: (v["a"][:, ids], v["b"][:, ids])
             for k, v in adapters.items() if k != "scale"}
@@ -386,18 +512,30 @@ def _adapter_layers(adapters, adapter_ids, n_layers: int, dtype) -> List:
             for l in range(n_layers)]
 
 
-def _mm_ad(x, w, lora, name: str):
+def _mm_ad(x, w, lora, name: str, partial: bool = False):
     """``matmul_maybe_q`` plus the per-row adapter delta when this leaf
     carries adapters: the one composition point (a quantized base stays
-    inside ``_mm``, QLoRA-style)."""
-    y = _mm(x, w)
+    inside ``_mm``, QLoRA-style).  ``partial``: a row-parallel tp
+    shard's partial product, returned in f32 for :func:`_tp_sum` (on the
+    card a bf16 product is one GEMM with f32 output, so that the partials
+    are rounded once, after their sum, as the whole GEMM rounds), its
+    adapter delta added before the sum."""
+    if not partial:
+        y = _mm(x, w)
+    elif x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                     out_dtype=torch.float32).reshape(*x.shape[:-1],
+                                                      w.shape[-1])
+    else:
+        y = _mm(x, w).float()
     if lora is None:
         return y
     rows, s_rows = lora
     if name not in rows:
         return y
     a, b = rows[name]
-    return y + adapter_delta(x, a, b, s_rows)
+    delta = adapter_delta(x, a, b, s_rows)
+    return y + (delta.float() if partial else delta)
 
 
 def _qkv(p, x, cfg: ModelConfig, tables, lora=None):
@@ -454,35 +592,60 @@ def cached_attention(q, kk, vv, positions, window: Optional[int] = None,
     return out.reshape(b, h, s, hd)
 
 
-def ffn_block(p, x, lora=None):
+def ffn_block(p, x, lora=None, partial: bool = False):
     g = _mm_ad(x, p["w_gate"], lora, "w_gate")
     u = _mm_ad(x, p["w_up"], lora, "w_up")
-    return _mm_ad(F.silu(g) * u, p["w_down"], lora, "w_down")
+    return _mm_ad(F.silu(g) * u, p["w_down"], lora, "w_down",
+                  partial=partial)
 
 
 def _attn_ffn(layer, x, cfg: ModelConfig, attend, lora=None):
     """THE pre-norm decoder layer: rmsnorm -> attend -> o-proj residual ->
-    rmsnorm -> ffn residual.  ``attend(layer, xin) -> o [B, H, S, D]``
-    plugs in the cache flavor (none / paged) and threads ``lora`` into
-    :func:`_qkv` itself; ``lora`` (:func:`_mm_ad`) adds each row's
-    adapter delta to the o-projection and the FFN.
+    rmsnorm -> ffn residual.  ``attend(lyr, xin, lora, t) -> o [B, H, S,
+    D]`` plugs in the cache flavor (none / dense / paged) and threads
+    ``lora`` into :func:`_qkv` itself; ``lora`` (:func:`_mm_ad`) adds
+    each row's adapter delta to the o-projection and the FFN.
+
+    Tensor parallelism (the counterpart of the JAX package's
+    ``_attn_ffn_shard``): ``layer`` is then a tuple of one layer view a
+    tp shard and ``lora`` a list of one operand a shard.  Shard t's
+    ``attend`` gets its view, its operand, ``xin`` on its device and its
+    index, and returns its own heads' o; its ``wo`` rows and its FFN
+    (``w_gate``/``w_up`` columns, ``w_down`` rows) give partial products,
+    each with its adapter delta, that :func:`_tp_sum` adds on x's device.
+    The norms run there once.  One layer view is the tp = 1 program, op
+    for op.
 
     Returns ``(x, load)``: a layer with a ``router`` leaf (an
-    ``n_experts`` config) runs its FFN through ``ops.experts.moe_ffn``
+    ``n_experts`` config) runs its FFN through ``ops.experts.moe_ffn``,
+    whole and once on the first device (expert weights never tp-shard),
     and ``load`` is its [E] f32 token-to-expert counts; a dense layer's
     ``load`` is None.  An MoE layer takes no FFN adapter delta: serving
     pools on such a config carry the attention targets only
     (``ops.lora.serving_adapter_dims``)."""
+    split = isinstance(layer, tuple)
+    shards = layer if split else (layer,)
+    loras = (lora or [None] * len(shards)) if split else (lora,)
+    devs = [lyr["wo"].device if split else None for lyr in shards]
     b, s, _ = x.shape
-    xin = rmsnorm(x, layer["attn_scale"], cfg.norm_eps)
-    o = attend(layer, xin)
-    o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
-    x = x + _mm_ad(o, layer["wo"], lora, "wo")
-    xn = rmsnorm(x, layer["ffn_scale"], cfg.norm_eps)
-    if "router" in layer:
-        y, load = moe_ffn(xn, layer, cfg)
+    xin = rmsnorm(x, shards[0]["attn_scale"], cfg.norm_eps)
+    parts = []
+    for t, (lyr, lo, dev) in enumerate(zip(shards, loras, devs)):
+        with on_card(dev):
+            o = attend(lyr, xin.to(dev) if split else xin, lo, t)
+            o = o.transpose(1, 2).reshape(b, s, -1)
+            parts.append(_mm_ad(o, lyr["wo"], lo, "wo", partial=split))
+    x = x + _tp_sum(parts, x)
+    xn = rmsnorm(x, shards[0]["ffn_scale"], cfg.norm_eps)
+    if "router" in shards[0]:
+        y, load = moe_ffn(xn, shards[0], cfg)
         return x + y, load
-    return x + ffn_block(layer, xn, lora=lora), None
+    parts = []
+    for lyr, lo, dev in zip(shards, loras, devs):
+        with on_card(dev):
+            parts.append(ffn_block(lyr, xn.to(dev) if split else xn,
+                                   lora=lo, partial=split))
+    return x + _tp_sum(parts, x), None
 
 
 def _sum_loads(loads):
@@ -500,7 +663,7 @@ def _embed(params, tokens, cfg: ModelConfig):
 def forward(params, tokens, cfg: ModelConfig, remat_policy=None,
             return_hidden: bool = False, kv_caches=None, cache_len=None,
             kv_write_len=None, adapters=None, adapter_ids=None,
-            return_expert_load: bool = False):
+            return_expert_load: bool = False, mesh=None):
     """tokens [B, S] -> logits [B, S, vocab] f32, no cache; differentiable
     (the training forward; serving callers wrap it in inference mode).
     Attention is :func:`tpushare_torch.ops.attention.attention`: K1
@@ -520,26 +683,33 @@ def forward(params, tokens, cfg: ModelConfig, remat_policy=None,
     ``return_expert_load`` appends the [E] f32 token-to-expert counts
     summed over the layers (None on a dense config) to what is returned,
     as the JAX ``forward`` does: ``(logits, load)``, or with
-    ``kv_caches`` ``(logits, kv_caches, load)``."""
+    ``kv_caches`` ``(logits, kv_caches, load)``.
+
+    ``mesh`` with a tp axis (params from ``parallel.mesh.shard_params``):
+    each tp shard attends over its own H/tp q heads and Hkv/tp kv heads,
+    K1 once a shard and layer on the card (:func:`_attn_ffn`)."""
     if kv_caches is not None:
         return forward_cached(params, tokens, cfg, kv_caches,
                               0 if cache_len is None else cache_len,
                               kv_write_len=kv_write_len, adapters=adapters,
                               adapter_ids=adapter_ids,
-                              return_expert_load=return_expert_load)
+                              return_expert_load=return_expert_load,
+                              mesh=mesh)
     b, s = tokens.shape
+    mesh, tp, lcfg = _tp_setup(params, cfg, mesh)
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rots = _per_shard(rope_tables(positions, cfg.head_dim, cfg.rope_theta),
+                      mesh, tp)
     x = _embed(params, tokens, cfg)
 
     def body(x, lyr, lora):
-        def attend(lyr, xin):
-            q, k, v = _qkv(lyr, xin, cfg, rot, lora)
+        def attend(lyr, xin, lora, t):
+            q, k, v = _qkv(lyr, xin, lcfg, rots[t], lora)
             return attention(q, k, v, causal=True, window=cfg.window)
 
         return _attn_ffn(lyr, x, cfg, attend, lora)
 
-    layers = _layers(params)
+    layers = _layers(params, tp)
     loras = _adapter_layers(adapters, adapter_ids, len(layers),
                             cfg.dtype)
     loads = []
@@ -620,13 +790,28 @@ def _kv_store_zeros(shape, cfg: ModelConfig, device):
 # Dense and rolling KV caches
 # ---------------------------------------------------------------------------
 def init_kv_caches(cfg: ModelConfig, batch: int, rolling: bool = False,
-                   ring_slack: int = 0, device=None) -> Tuple:
+                   ring_slack: int = 0, device=None, mesh=None) -> Tuple:
     """Stacked KV cache: a (k, v) pair of zeroed [L, B, Hkv, T, D] stores
     with T = max_seq, or for a ROLLING ring (sliding-window configs only)
     T = min(window + ring_slack, max_seq): position p lives in slot
     p % T, so a slot costs O(window), not O(max_seq).  ``ring_slack``
     adds ring slots beyond the window.  ``cfg.kv_dtype="int8"`` makes
-    each store an int8 {"q","s"} pair (:func:`_kv_store_zeros`)."""
+    each store an int8 {"q","s"} pair (:func:`_kv_store_zeros`).
+
+    Under a ``mesh`` with a tp axis of size > 1, one such pair a tp shard,
+    of its Hkv/tp kv heads, allocated on its device (the layout of
+    ``parallel.mesh.shard_kv_storage(axis="tp")``, with no whole-size
+    transient); dense rows take no sp axis."""
+    tp = tp_degree(mesh)
+    if tp_degree(mesh, "sp") > 1:
+        raise ValueError("dense and rolling rows take no sp axis (position "
+                         "striping is a paged-pool feature)")
+    if tp > 1:
+        lc = _kv_shard_cfg(cfg, tp)
+        return tuple(init_kv_caches(lc, batch, rolling=rolling,
+                                    ring_slack=ring_slack,
+                                    device=mesh.device(tp=t))
+                     for t in range(tp))
     if rolling:
         if cfg.window is None:
             raise ValueError("rolling caches need a sliding-window cfg")
@@ -638,11 +823,36 @@ def init_kv_caches(cfg: ModelConfig, batch: int, rolling: bool = False,
     return (_kv_store_zeros(shape, cfg, dev), _kv_store_zeros(shape, cfg, dev))
 
 
+def _kv_shard_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The config of one tp shard's KV storage: Hkv/tp kv heads, whole
+    GQA groups, else a ValueError (lay such a model's storage out on
+    :func:`serving_mesh`, which keeps it whole)."""
+    if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+        raise ValueError(f"{tp} tp shards do not split {cfg.n_heads} q and "
+                         f"{cfg.n_kv_heads} kv heads into whole GQA groups")
+    return local_cfg(cfg, tp)
+
+
 def _kv_map(f, store):
     """``f`` applied to every tensor of a store, the same kind back."""
     if isinstance(store, dict):
         return {k: f(v) for k, v in store.items()}
     return f(store)
+
+
+def kv_tree_map(f, tree):
+    """``f`` applied to every tensor of KV storage: a store, a ``(k, v)``
+    pair, or a tuple of one pair a shard; the same nesting back."""
+    if isinstance(tree, tuple):
+        return tuple(kv_tree_map(f, x) for x in tree)
+    return _kv_map(f, tree)
+
+
+def kv_tree_leaves(tree) -> List[torch.Tensor]:
+    """Every tensor of KV storage, in :func:`kv_tree_map`'s order."""
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in kv_tree_leaves(x)]
+    return _kv_leaves(tree)
 
 
 def _rows_of(x, b: int, device) -> torch.Tensor:
@@ -747,32 +957,41 @@ def _attend_dense(q, k, v, cfg: ModelConfig, positions, ck, cv, cache_len,
 def forward_cached(params, tokens, cfg: ModelConfig, kv_caches, cache_len,
                    kv_write_len=None, key_bound: Optional[int] = None,
                    adapters=None, adapter_ids=None,
-                   return_expert_load: bool = False):
+                   return_expert_load: bool = False, mesh=None):
     """tokens [B, S] through a dense or rolling cache (from
     :func:`init_kv_caches`) at ``cache_len`` (int, or [B] per row): the
     S positions' K/V are written into ``kv_caches`` in place (see
     :func:`_attend_dense`).  Returns (logits [B, S, vocab] f32,
     kv_caches).  ``key_bound`` caps the slots a full-size cache's read
     covers; by default an int ``cache_len``'s ``cache_len + S``.
-    ``return_expert_load`` appends the summed [E] expert load."""
+    ``return_expert_load`` appends the summed [E] expert load.  Under a
+    ``mesh`` with a tp axis the caches hold one pair a tp shard, each
+    read and written by its own shard."""
     b, s = tokens.shape
     dev = tokens.device
+    mesh, tp, lcfg = _tp_setup(params, cfg, mesh)
     if key_bound is None and isinstance(cache_len, int):
         key_bound = cache_len + s
     cl = _rows_of(cache_len, b, dev)
     positions = cl[:, None] + torch.arange(s, device=dev)[None, :]
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    ck, cv = kv_caches
+    rots = _per_shard(rope_tables(positions, cfg.head_dim, cfg.rope_theta),
+                      mesh, tp)
+    shard_caches = list(kv_caches) if tp > 1 else [kv_caches]
+    poss, cls = _per_shard(positions, mesh, tp), _per_shard(cl, mesh, tp)
+    kwls = (_per_shard(kv_write_len, mesh, tp)
+            if isinstance(kv_write_len, torch.Tensor)
+            else [kv_write_len] * tp)
     x = _embed(params, tokens, cfg)
-    layers = _layers(params)
+    layers = _layers(params, tp)
     loras = _adapter_layers(adapters, adapter_ids, len(layers),
                             cfg.dtype)
     loads = []
     for l, (layer, lora) in enumerate(zip(layers, loras)):
-        def attend(lyr, xin, l=l, lora=lora):
-            q, k, v = _qkv(lyr, xin, cfg, rot, lora)
-            return _attend_dense(q, k, v, cfg, positions, _kv_layer(ck, l),
-                                 _kv_layer(cv, l), cl, kv_write_len,
+        def attend(lyr, xin, lora, t, l=l):
+            q, k, v = _qkv(lyr, xin, lcfg, rots[t], lora)
+            ck, cv = shard_caches[t]
+            return _attend_dense(q, k, v, lcfg, poss[t], _kv_layer(ck, l),
+                                 _kv_layer(cv, l), cls[t], kwls[t],
                                  key_bound)
 
         x, load = _attn_ffn(layer, x, cfg, attend, lora)
@@ -792,39 +1011,47 @@ def init_paged_kv(cfg: ModelConfig, n_pages: int, page_size: int,
     Page 0 is the TRASH page: unowned table entries and inactive slots
     point at it, and the position mask keeps it out of every softmax.
 
-    Under a ``mesh`` with an ``sp`` axis of size > 1, the striped pool:
-    one such pair of [L, n_pages / sp, ...] stores per stripe, each
-    allocated on its shard's device (the layout of
-    ``parallel.mesh.shard_kv_storage``, with no full-size transient)."""
-    sp = tp_degree(mesh, "sp")
-    if sp > 1:
+    Under a ``mesh`` with ``sp`` and/or ``tp`` axes of more than one
+    shard, one such pair a shard of the mesh, in its row-major order,
+    allocated on that shard's device (the layout of
+    ``parallel.mesh.shard_kv_storage``, with no full-size transient):
+    shard (t, s) holds ``[L, n_pages / sp, Hkv / tp, page, D]``, stripe s
+    of tp shard t's kv heads."""
+    sp, tp = tp_degree(mesh, "sp"), tp_degree(mesh)
+    if sp * tp > 1:
         if n_pages % sp:
             raise ValueError(f"{n_pages} pages do not split into {sp} "
                              f"equal position stripes")
-        return tuple(init_paged_kv(cfg, n_pages // sp, page_size, device=d)
+        lc = _kv_shard_cfg(cfg, tp) if tp > 1 else cfg
+        return tuple(init_paged_kv(lc, n_pages // sp, page_size, device=d)
                      for d in mesh.devices)
     dev = default_device(device)
     shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
     return (_kv_store_zeros(shape, cfg, dev), _kv_store_zeros(shape, cfg, dev))
 
 
-def _pool_stripes(pools, mesh) -> List[Tuple]:
-    """The ``(k, v)`` store pairs of a pool: one, or one per stripe."""
-    return list(pools) if tp_degree(mesh, "sp") > 1 else [pools]
+def _pool_stripes(pools, mesh=None) -> List[Tuple]:
+    """The ``(k, v)`` store pairs of a pool: one, or one a shard of the
+    mesh in its row-major order (stripes of tp shard t at ``[t*sp,
+    (t+1)*sp)``)."""
+    return list(pools) if isinstance(pools[0], tuple) else [pools]
 
 
 def _stripe_page_ids(page_ids, stripes, mesh) -> List[torch.Tensor]:
-    """Global page ids [N] -> each stripe's local ids on its device:
+    """Global page ids [N] -> each shard's local ids on its device:
     page p belongs to stripe ``p // per`` at local page ``p % per``; on
     the other stripes the row writes that stripe's trash page 0, so every
-    stripe writes every row and no host sync decides who owns what."""
+    stripe writes every row and no host sync decides who owns what.
+    Every tp shard's stripe s takes stripe s's ids."""
     if len(stripes) == 1:
         return [page_ids]
+    sp = tp_degree(mesh, "sp")
     per = _kv_leaf(stripes[0][0]).shape[1]
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for i, dev in enumerate(mesh.devices):
         ids = page_ids.to(dev)
-        out.append(torch.where(ids // per == s, ids % per, 0))
+        out.append(torch.where(ids // per == i % sp, ids % per, 0)
+                   if sp > 1 else ids)
     return out
 
 
@@ -922,9 +1149,13 @@ def forward_paged_decode(params, tokens, cfg: ModelConfig, pools,
     lands at logical position ``length`` (page length // P, lane
     length % P) in place, before the read.  Returns (logits [B, 1, vocab]
     f32, pools), and the summed [E] expert load third with
-    ``return_expert_load``."""
+    ``return_expert_load``.  Under a ``mesh`` with a tp axis, each tp shard
+    writes and reads its own kv heads' stores (K2 once a shard and layer,
+    on each stripe under tp x sp)."""
     b, s = tokens.shape
+    mesh, tp, lcfg = _tp_setup(params, cfg, mesh)
     stripes = _pool_stripes(pools, mesh)
+    sp = len(stripes) // tp
     page = _kv_leaf(stripes[0][0]).shape[3]
     lengths = lengths.to(torch.int32)
     positions = (lengths[:, None]
@@ -939,25 +1170,31 @@ def forward_paged_decode(params, tokens, cfg: ModelConfig, pools,
         0)[:, 0]
     ids = _stripe_page_ids(page_ids.long(), stripes, mesh)
     offsets = [(lengths % page).long().to(i.device) for i in ids]
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rots = _per_shard(rope_tables(positions, cfg.head_dim, cfg.rope_theta),
+                      mesh, tp)
+    subs, tables = _shard_meshes(mesh, tp), _per_shard(page_table, mesh, tp)
+    poss = _per_shard(positions, mesh, tp)
     x = _embed(params, tokens, cfg)
-    layers = _layers(params)
+    layers = _layers(params, tp)
     loras = _adapter_layers(adapters, adapter_ids, len(layers),
                             cfg.dtype)
     loads = []
     for l, (layer, lora) in enumerate(zip(layers, loras)):
-        def attend(lyr, xin, l=l, lora=lora):
-            q, k, v = _qkv(lyr, xin, cfg, rot, lora)
-            new = (_kv_pack(k, cfg), _kv_pack(v, cfg))
+        def attend(lyr, xin, lora, t, l=l):
+            q, k, v = _qkv(lyr, xin, lcfg, rots[t], lora)
+            new = (_kv_pack(k, lcfg), _kv_pack(v, lcfg))
+            mine = slice(t * sp, (t + 1) * sp)
             # distinct active slots own distinct pages; inactive slots all
             # land on the trash page
-            for pair, pid, off in zip(stripes, ids, offsets):
+            for pair, pid, off in zip(stripes[mine], ids[mine],
+                                      offsets[mine]):
                 for pool, st in zip(pair, new):
                     for leaf, part in zip(_kv_leaves(pool), _kv_leaves(st)):
                         leaf[l][pid, :, off, :] = part[:, :, 0, :].to(
                             leaf.device)
-            return paged_attention(q, *_layer_stores(stripes, l, mesh),
-                                   page_table, positions, cfg, mesh=mesh)
+            return paged_attention(
+                q, *_layer_stores(stripes[mine], l, subs[t]), tables[t],
+                poss[t], lcfg, mesh=subs[t])
 
         x, load = _attn_ffn(layer, x, cfg, attend, lora)
         loads.append(load)
@@ -981,7 +1218,9 @@ def _paged_prefill_rows(params, tokens, cfg: ModelConfig, pools, page_rows,
     multiples with ``pos + W <= max_seq``; the one chunk and the batch of
     chunks are this body, so the two cannot drift."""
     r, s = tokens.shape
+    mesh, tp, lcfg = _tp_setup(params, cfg, mesh)
     stripes = _pool_stripes(pools, mesh)
+    sp = len(stripes) // tp
     page = _kv_leaf(stripes[0][0]).shape[3]
     n_chunks = s // page
     positions = (pos[:, None] + torch.arange(s, device=tokens.device)[None, :]
@@ -990,21 +1229,25 @@ def _paged_prefill_rows(params, tokens, cfg: ModelConfig, pools, page_rows,
         1, (pos // page)[:, None]
         + torch.arange(n_chunks, device=tokens.device)[None, :])
     ids = _stripe_page_ids(pids.reshape(-1), stripes, mesh)
-    hkv = cfg.n_kv_heads
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    hkv = lcfg.n_kv_heads
+    rots = _per_shard(rope_tables(positions, cfg.head_dim, cfg.rope_theta),
+                      mesh, tp)
+    subs, tables = _shard_meshes(mesh, tp), _per_shard(page_rows, mesh, tp)
+    poss = _per_shard(positions, mesh, tp)
     x = _embed(params, tokens, cfg)
-    layers = _layers(params)
+    layers = _layers(params, tp)
     loras = _adapter_layers(adapters, adapter_ids, len(layers),
                             cfg.dtype)
     loads = []
     for l, (layer, lora) in enumerate(zip(layers, loras)):
-        def attend(lyr, xin, l=l, lora=lora):
-            q, k, v = _qkv(lyr, xin, cfg, rot, lora)       # k [R, Hkv, W, D]
-            new = (_kv_pack(k, cfg), _kv_pack(v, cfg))
+        def attend(lyr, xin, lora, t, l=l):
+            q, k, v = _qkv(lyr, xin, lcfg, rots[t], lora)  # k [R, Hkv, W, D]
+            new = (_kv_pack(k, lcfg), _kv_pack(v, lcfg))
+            mine = slice(t * sp, (t + 1) * sp)
             # live rows own distinct pages; a padded row's all-zero table
             # sends every one of its pages to the trash page, which
             # repeats harmlessly (masked out of every softmax)
-            for pair, pid in zip(stripes, ids):
+            for pair, pid in zip(stripes[mine], ids[mine]):
                 for pool, st in zip(pair, new):
                     for leaf, part in zip(_kv_leaves(pool), _kv_leaves(st)):
                         leaf[l][pid] = part.reshape(
@@ -1012,8 +1255,9 @@ def _paged_prefill_rows(params, tokens, cfg: ModelConfig, pools, page_rows,
                         ).transpose(1, 2).reshape(
                             r * n_chunks, hkv, page,
                             part.shape[-1]).to(leaf.device)
-            return paged_attention(q, *_layer_stores(stripes, l, mesh),
-                                   page_rows, positions, cfg, mesh=mesh)
+            return paged_attention(
+                q, *_layer_stores(stripes[mine], l, subs[t]), tables[t],
+                poss[t], lcfg, mesh=subs[t])
 
         x, load = _attn_ffn(layer, x, cfg, attend, lora)
         loads.append(load)
@@ -1112,7 +1356,9 @@ def forward_paged_verify(params, tokens, cfg: ModelConfig, pools,
     Returns (logits [B, 1+k, vocab] f32, pools), and the summed [E]
     expert load third with ``return_expert_load``."""
     b, s = tokens.shape
+    mesh, tp, lcfg = _tp_setup(params, cfg, mesh)
     stripes = _pool_stripes(pools, mesh)
+    sp = len(stripes) // tp
     page = _kv_leaf(stripes[0][0]).shape[3]
     dev = tokens.device
     positions = (lengths.to(device=dev, dtype=torch.int32)[:, None]
@@ -1126,24 +1372,30 @@ def forward_paged_verify(params, tokens, cfg: ModelConfig, pools,
     ids = _stripe_page_ids(pids.reshape(-1).long(), stripes, mesh)
     offsets = [(positions % page).reshape(-1).long().to(i.device)
                for i in ids]
-    hkv = cfg.n_kv_heads
-    rot = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    hkv = lcfg.n_kv_heads
+    rots = _per_shard(rope_tables(positions, cfg.head_dim, cfg.rope_theta),
+                      mesh, tp)
+    subs, tables = _shard_meshes(mesh, tp), _per_shard(page_table, mesh, tp)
+    poss = _per_shard(positions, mesh, tp)
     x = _embed(params, tokens, cfg)
-    layers = _layers(params)
+    layers = _layers(params, tp)
     loras = _adapter_layers(adapters, adapter_ids, len(layers),
                             cfg.dtype)
     loads = []
     for l, (layer, lora) in enumerate(zip(layers, loras)):
-        def attend(lyr, xin, l=l, lora=lora):
-            q, k, v = _qkv(lyr, xin, cfg, rot, lora)    # k [B, Hkv, S, D]
-            new = (_kv_pack(k, cfg), _kv_pack(v, cfg))
-            for pair, pid, off in zip(stripes, ids, offsets):
+        def attend(lyr, xin, lora, t, l=l):
+            q, k, v = _qkv(lyr, xin, lcfg, rots[t], lora)  # k [B, Hkv, S, D]
+            new = (_kv_pack(k, lcfg), _kv_pack(v, lcfg))
+            mine = slice(t * sp, (t + 1) * sp)
+            for pair, pid, off in zip(stripes[mine], ids[mine],
+                                      offsets[mine]):
                 for pool, st in zip(pair, new):
                     for leaf, part in zip(_kv_leaves(pool), _kv_leaves(st)):
                         leaf[l][pid, :, off, :] = part.transpose(1, 2).reshape(
                             b * s, hkv, part.shape[-1]).to(leaf.device)
-            return paged_attention(q, *_layer_stores(stripes, l, mesh),
-                                   page_table, positions, cfg, mesh=mesh)
+            return paged_attention(
+                q, *_layer_stores(stripes[mine], l, subs[t]), tables[t],
+                poss[t], lcfg, mesh=subs[t])
 
         x, load = _attn_ffn(layer, x, cfg, attend, lora)
         loads.append(load)

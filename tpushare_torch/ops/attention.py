@@ -386,9 +386,20 @@ def use_flash(q, k) -> bool:
             and q.shape[-1] in KERNEL_HEAD_DIMS)
 
 
-def attention(q, k, v, causal: bool = True, window: Optional[int] = None):
+def attention(q, k, v, causal: bool = True, window: Optional[int] = None,
+              mesh=None):
     """Dispatch: K1 where :func:`use_flash` allows, the reference
-    otherwise (the CPU, cross-length blocks)."""
+    otherwise (the CPU, cross-length blocks).
+
+    ``mesh`` with a tp axis of size > 1 routes through
+    :func:`sharded_attention` (K1 once a shard on its own GQA head
+    groups) where tp divides both head counts; otherwise (the JAX
+    package's ``tp_heads`` gate) the call runs as tp = 1 on q's device,
+    K1 over all heads in one launch."""
+    tp = tp_degree(mesh)
+    if tp > 1 and q.shape[1] % tp == 0 and k.shape[1] % tp == 0:
+        return sharded_attention(q, k, v, mesh, causal=causal,
+                                 window=window)
     if use_flash(q, k):
         return flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal,
@@ -900,6 +911,71 @@ def striped_local_view(page_table, sp: int, shard: int,
             (cols * page).to(torch.int32))
 
 
+def _head_block(x: torch.Tensor, t: int, tp: int) -> torch.Tensor:
+    """Shard t's contiguous block of x's heads (dim 1).  Heads are ordered
+    kv-group-major (q head h reads kv head h // n_rep), so block t of the
+    q heads covers exactly block t of the kv heads: whole GQA groups."""
+    n = x.shape[1] // tp
+    return x[:, t * n:(t + 1) * n]
+
+
+def sharded_paged_decode_attention(q, k_shards, v_shards, page_table,
+                                   positions, mesh,
+                                   window: Optional[int] = None):
+    """:func:`paged_decode_attention` over a pool whose kv heads are split
+    on the mesh's ``tp`` axis (``parallel.mesh.shard_kv_storage``):
+    ``k_shards``/``v_shards`` hold one layer store a tp shard, shard t on
+    ``mesh.device(tp=t)`` with kv heads ``[t*Hkv/tp, (t+1)*Hkv/tp)``.
+    q [B, H, S, D] splits in blocks of H/tp heads; each block, with the
+    table and the positions, goes to its shard's device, where K2 reads
+    that shard's store (the S = 1 or S > 1 arm, bf16 or int8); the
+    outputs are concatenated on q's device.  No softmax crosses a shard.
+    Callers check that tp divides both head counts (the ``tp_heads`` gate,
+    ``models.transformer.serving_mesh``)."""
+    tp = tp_degree(mesh)
+    if q.shape[1] % tp:
+        raise ValueError(f"{tp} tp shards do not split {q.shape[1]} q heads")
+    outs = []
+    with torch.profiler.record_function("sharded_paged_decode_attention"):
+        for t in range(tp):
+            dev = mesh.device(tp=t)
+            with on_card(dev):
+                outs.append(paged_decode_attention(
+                    _head_block(q, t, tp).to(dev).contiguous(), k_shards[t],
+                    v_shards[t], page_table.to(dev), positions.to(dev),
+                    window=window).to(q.device))
+        return torch.cat(outs, dim=1)
+
+
+def sharded_attention(q, k, v, mesh, causal: bool = True,
+                      window: Optional[int] = None):
+    """:func:`attention` with the heads split on the mesh's ``tp`` axis:
+    q [B, H, S, D] and k/v [B, Hkv, S, D] split in blocks of H/tp and
+    Hkv/tp heads (whole GQA groups), each block runs :func:`attention`
+    (K1 on the card) on its shard's device, and the outputs are
+    concatenated on q's device.  Callers check that tp divides both head
+    counts (:func:`attention` does)."""
+    tp = tp_degree(mesh)
+    outs = []
+    with torch.profiler.record_function("sharded_attention"):
+        for t in range(tp):
+            dev = mesh.device(tp=t)
+            with on_card(dev):
+                outs.append(attention(
+                    _head_block(q, t, tp).to(dev), _head_block(k, t, tp).to(
+                        dev), _head_block(v, t, tp).to(dev), causal=causal,
+                    window=window).to(q.device))
+        return torch.cat(outs, dim=1)
+
+
+def on_card(dev):
+    """A context whose launches go to ``dev``'s card (none for the CPU or
+    None)."""
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 def sp_merge_partials(outs, ms, ls, device):
     """Fold one ``(out, m, l)`` partial per stripe into the full-key
     softmax, in f32 on ``device``: with M = max_s m_s and w_s =
@@ -922,15 +998,32 @@ def sp_striped_paged_decode_attention(q, k_stripes, v_stripes, page_table,
     stripe, stripe s on the mesh's device s.  For each stripe, q and its
     local view of the global ``page_table`` (:func:`striped_local_view`)
     go to its device and K2's striped variant returns its partials;
-    :func:`sp_merge_partials` folds them on q's device."""
+    :func:`sp_merge_partials` folds them on q's device.
+
+    A tp x sp mesh: the stores are one a shard in the mesh's row-major
+    order, shard (t, s) stripe s of tp shard t's kv heads; q's heads
+    split in blocks of H/tp (whole GQA groups), each block reads its own
+    tp shard's stripes, the merge folds over sp only, and the blocks are
+    concatenated on q's device.  Callers check that tp divides both head
+    counts."""
+    tp = tp_degree(mesh)
+    if tp > 1:
+        sp = len(k_stripes) // tp
+        with torch.profiler.record_function(
+                "sp_striped_paged_decode_attention"):
+            return torch.cat([sp_striped_paged_decode_attention(
+                _head_block(q, t, tp).contiguous(),
+                k_stripes[t * sp:(t + 1) * sp],
+                v_stripes[t * sp:(t + 1) * sp], page_table, positions,
+                mesh.submesh(tp=t), window=window)
+                for t in range(tp)], dim=1)
     sp = tp_degree(mesh, "sp")
     leaf = _store_values(k_stripes[0])
     per, page = leaf.shape[0], leaf.shape[2]
     outs, ms, ls = [], [], []
     for s in range(sp):
         dev = mesh.devices[s]
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+        with on_card(dev):
             tbl, pmap = striped_local_view(page_table.to(dev), sp, s, per,
                                            page)
             o, m, l = paged_decode_attention(

@@ -48,7 +48,7 @@ class Trainer:
                  head_chunk: int = 0, device=None):
         if mesh is not None:
             raise ValueError("mesh: sharded training is not ported yet "
-                             "(ROADMAP A.12, multi-device)")
+                             "(ROADMAP A.11)")
         self.cfg = cfg
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha

@@ -47,6 +47,7 @@ import torch
 
 from .. import default_device
 from ..ops import lora as ops_lora
+from ..parallel.mesh import adapter_block, shard_adapter_pool
 from . import metrics
 
 log = logging.getLogger("tpushare_torch.serving")
@@ -73,15 +74,19 @@ def _write_adapter(pool, idx: int, entry, scale: float) -> None:
     """Write one adapter's a/b/scale into pool row ``idx`` in place (the
     counterpart of the reference's donated ``.at[:, idx].set``): stream-
     ordered after every forward already queued, and no forward in flight
-    reads an unpinned row."""
-    for name, leaves in pool.items():
-        if name == "scale":
-            continue
-        for k in ("a", "b"):
-            dst = leaves[k]
-            dst[:, idx] = entry[name][k].to(device=dst.device,
-                                            dtype=dst.dtype)
-    pool["scale"][idx] = float(scale)
+    reads an unpinned row.  A pool split on tp (a tuple of one pool a
+    shard) takes each shard's block of the entry
+    (``parallel.mesh.adapter_block``)."""
+    shards = pool if isinstance(pool, tuple) else (pool,)
+    for t, part in enumerate(shards):
+        for name, leaves in part.items():
+            if name == "scale":
+                continue
+            for k in ("a", "b"):
+                dst = leaves[k]
+                src = adapter_block(name, k, entry[name][k], t, len(shards))
+                dst[:, idx] = src.to(device=dst.device, dtype=dst.dtype)
+        part["scale"][idx] = float(scale)
 
 
 def _name_seed(name: str) -> int:
@@ -96,7 +101,11 @@ class AdapterPool:
 
     def __init__(self, cfg, rank: int, n_slots: int,
                  loader: Optional[Callable[[str], Dict]] = None,
-                 dtype=None, device=None):
+                 dtype=None, device=None, mesh=None):
+        """``mesh`` with a tp axis splits the pool like its base
+        projections, one pool a tp shard on its device
+        (``parallel.mesh.shard_adapter_pool``); every write goes to each
+        shard's block."""
         if n_slots < 1:
             raise ValueError("adapter pool needs >= 1 named slot")
         self.cfg = cfg
@@ -108,6 +117,8 @@ class AdapterPool:
         self._pool = ops_lora.init_adapter_pool_arrays(
             cfg, self.rank, self.n_slots + 1, dtype=self._dtype,
             device=self.device)
+        if mesh is not None and "tp" in mesh.axis_names:
+            self._pool = shard_adapter_pool(self._pool, mesh)
         self._by_name: Dict[str, int] = {}
         #: idx -> {"name", "refs", "last_used"} for rows 1..n_slots
         self._rows: Dict[int, dict] = {
@@ -129,9 +140,9 @@ class AdapterPool:
 
     # -- device operands (loop thread) ---------------------------------
     def device_operands(self):
-        """The stacked pool the forwards gather from.  Loads and
-        evictions touch only rows no live slot references (pins gate
-        eviction)."""
+        """The stacked pool the forwards gather from (one a tp shard
+        under a tp mesh).  Loads and evictions touch only rows no live
+        slot references (pins gate eviction)."""
         return self._pool
 
     # -- residency (MUTATIONS: service loop thread only) ---------------

@@ -92,10 +92,10 @@ import torch
 
 from .. import default_device, telemetry
 from ..models import transformer
-from ..ops.attention import NEG_INF
+from ..ops.attention import NEG_INF, tp_degree
 from ..ops.experts import expert_pool_bytes
 from ..ops.quant import kv_cache_bytes
-from ..parallel.mesh import canonical_device
+from ..parallel.mesh import canonical_device, shard_params
 from ..telemetry import health
 from ..telemetry.events import RECORDER
 from . import metrics, migrate
@@ -199,15 +199,14 @@ DERIVED_OBSERVE_EVERY = 16
 # cache to keep; the names are the reference's)
 # ---------------------------------------------------------------------------
 def _row_view(caches, slot: int):
-    """Row ``slot`` of the stacked caches, as views: writes land in the
-    pool."""
-    return tuple(transformer._kv_map(lambda t: t[:, slot:slot + 1], c)
-                 for c in caches)
+    """Row ``slot`` of the stacked caches (every tp shard's), as views:
+    writes land in the pool."""
+    return transformer.kv_tree_map(lambda t: t[:, slot:slot + 1], caches)
 
 
 @torch.inference_mode()
 def _prefill_chunk(params, tokens, caches, slot: int, pos: int,
-                   last_idx: int, cfg, ad=None):
+                   last_idx: int, cfg, ad=None, mesh=None):
     """One prompt chunk [1, C] into row ``slot`` at offset ``pos``;
     returns the [V] logits at ``last_idx``, the chunk's last real token.
     Whole-prompt prefill is the ``pos=0`` single-chunk case.  The caller
@@ -218,14 +217,14 @@ def _prefill_chunk(params, tokens, caches, slot: int, pos: int,
     _adapter_kw`), empty without a pool."""
     logits, _ = transformer.forward_cached(
         params, tokens, cfg, _row_view(caches, slot), pos,
-        kv_write_len=last_idx + 1, **(ad or {}))
+        kv_write_len=last_idx + 1, mesh=mesh, **(ad or {}))
     return logits[0, last_idx]
 
 
 @torch.inference_mode()
 def _tick_mixed(params, p_tokens, p_slots, p_pos, p_last, act_rows,
                 act_slots, caches, cfg, key_bound: Optional[int], ad=None,
-                forward=transformer.forward_cached):
+                forward=transformer.forward_cached, mesh=None):
     """The prefill half of a mixed round: the pending chunks p_tokens
     [R, C] of up to R mid-prefill slots as ONE batched forward.  The
     target rows are gathered out of the pool (``p_slots``), prefilled at
@@ -236,15 +235,15 @@ def _tick_mixed(params, p_tokens, p_slots, p_pos, p_last, act_rows,
     a wrapper of it with its signature and return (the batcher's
     :meth:`~ContinuousBatcher._forward_noting_load`).  Returns the
     chunk-final logits [R, V]."""
-    rows = tuple(transformer._kv_map(lambda t: t[:, p_slots], c)
-                 for c in caches)
+    rows = transformer.kv_tree_map(lambda t: t[:, p_slots.to(t.device)],
+                                   caches)
     logits, rows = forward(
         params, p_tokens, cfg, rows, p_pos, kv_write_len=p_last + 1,
-        key_bound=key_bound, **(ad or {}))
-    for store, row in zip(caches, rows):
-        for leaf, part in zip(transformer._kv_leaves(store),
-                              transformer._kv_leaves(row)):
-            leaf.index_copy_(1, act_slots, part.index_select(1, act_rows))
+        key_bound=key_bound, mesh=mesh, **(ad or {}))
+    for leaf, part in zip(transformer.kv_tree_leaves(caches),
+                          transformer.kv_tree_leaves(rows)):
+        leaf.index_copy_(1, act_slots.to(leaf.device),
+                         part.index_select(1, act_rows.to(part.device)))
     return logits[torch.arange(p_tokens.shape[0], device=logits.device),
                   p_last]
 
@@ -262,10 +261,16 @@ class ContinuousBatcher:
                  rolling_slots: Optional[bool] = None, spec_k: int = 0,
                  adapter_slots: int = 0, adapter_rank: int = 8,
                  adapter_loader=None):
-        """``mesh`` (``parallel.mesh.Mesh``, paged storage only): the
-        storage is laid over it, and the batcher runs the dense part of
-        every forward on its first device, where the params must lie
-        (``device``, if given, must name that device).
+        """``mesh`` (``parallel.mesh.Mesh``): the storage is laid over it,
+        and the batcher runs the dense part of every forward on its first
+        device, where the params must lie (``device``, if given, must
+        name that device).  A ``tp`` axis serves tensor-parallel: the
+        params take the Megatron split (``parallel.mesh.shard_params``),
+        the adapter pool and the KV storage split on heads, each tp shard
+        on its device; a model the split does not fit runs as tp = 1 on
+        the first device (``transformer.serving_mesh``), which
+        :attr:`mesh` then is.  An ``sp`` axis (position striping) is a
+        paged-pool feature.
 
         ``rolling_slots``: None (AUTO) gives a sliding-window config
         (window < max_seq) a ROLLING pool of window-sized rows (the same
@@ -293,6 +298,10 @@ class ContinuousBatcher:
                 raise ValueError(f"device {device} is not the mesh's first "
                                  f"device {dev0}")
             device = dev0
+            mesh = transformer.serving_mesh(mesh, cfg, params["layers"])
+            if (tp_degree(mesh) > 1
+                    and not isinstance(params["layers"], tuple)):
+                params = shard_params(params, mesh, cfg)
         self.spec_k = max(0, int(spec_k))
         if rolling_slots is None:
             rolling_slots = transformer.wants_rolling(cfg)
@@ -345,9 +354,10 @@ class ContinuousBatcher:
         # row (absent = the identity, a base-model request)
         self.adapter_pool: Optional[AdapterPool] = None
         if adapter_slots:
-            self.adapter_pool = AdapterPool(cfg, adapter_rank, adapter_slots,
-                                            loader=adapter_loader,
-                                            device=self.device)
+            self.adapter_pool = AdapterPool(
+                cfg, adapter_rank, adapter_slots, loader=adapter_loader,
+                device=self.device,
+                mesh=self.mesh if tp_degree(self.mesh) > 1 else None)
         self._slot_adapter: Dict[int, int] = {}
         self._init_storage()
         self._observe_storage()
@@ -493,12 +503,13 @@ class ContinuousBatcher:
 
     # -- storage hooks -------------------------------------------------
     def _init_storage(self) -> None:
-        if self.mesh is not None:
-            raise ValueError("dense and rolling slot storage takes no mesh "
-                             "(position striping is a paged-pool feature)")
+        if tp_degree(self.mesh, "sp") > 1:
+            raise ValueError("dense and rolling slot storage takes no sp "
+                             "axis (position striping is a paged-pool "
+                             "feature)")
         self.caches = transformer.init_kv_caches(
             self.cfg, self.n_slots, rolling=self.rolling_slots,
-            ring_slack=self.spec_k, device=self.device)
+            ring_slack=self.spec_k, device=self.device, mesh=self.mesh)
 
     def _reserve(self, slot: int, prompt_len: int, max_new: int,
                  prompt: Optional[List[int]] = None) -> bool:
@@ -524,7 +535,7 @@ class ContinuousBatcher:
         tokens = torch.tensor([prompt], dtype=torch.long, device=self.device)
         return _prefill_chunk(self.params, tokens, self.caches, slot, 0,
                               len(prompt) - 1, self.cfg,
-                              self._adapter_kw([slot]))
+                              self._adapter_kw([slot]), mesh=self.mesh)
 
     def _read_bound(self, lengths, n_steps: int) -> Optional[int]:
         """The slots a full-size row's decode read must cover over
@@ -547,7 +558,7 @@ class ContinuousBatcher:
         logits, _ = self._forward_noting_load(
             transformer.forward_cached,
             self.params, tokens, self.cfg, self.caches, lengths,
-            key_bound=operand,
+            key_bound=operand, mesh=self.mesh,
             **(self._adapter_kw() if ad is None else ad))
         return logits[:, 0]
 
@@ -561,7 +572,7 @@ class ContinuousBatcher:
         logits, _ = transformer.forward_cached(
             self.params, blocks, self.cfg, self.caches, n_ctxs,
             kv_write_len=torch.where(live, blocks.shape[1], 0),
-            key_bound=operand,
+            key_bound=operand, mesh=self.mesh,
             **(self._adapter_kw() if ad is None else ad))
         return logits
 
@@ -595,7 +606,7 @@ class ContinuousBatcher:
         logits at ``last_idx``."""
         return _prefill_chunk(self.params, padded_tokens, self.caches, slot,
                               pos, last_idx, self.cfg,
-                              self._adapter_kw([slot]))
+                              self._adapter_kw([slot]), mesh=self.mesh)
 
     def _prefill_block(self, block) -> torch.Tensor:
         """The prefill half of a mixed round (:func:`_tick_mixed`);
@@ -615,7 +626,8 @@ class ContinuousBatcher:
                            t(block["p_slots"][act]), self.caches, self.cfg,
                            bound, self._adapter_kw(ids=block["p_ads"]),
                            functools.partial(self._forward_noting_load,
-                                             transformer.forward_cached))
+                                             transformer.forward_cached),
+                           mesh=self.mesh)
 
     def _mixed_chunk_len(self, chunk: int) -> int:
         """The prefill-window width of chunked admission and of the mixed

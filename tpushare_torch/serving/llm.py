@@ -209,7 +209,7 @@ class LLMServer:
                  addr: str = "127.0.0.1", n_slots: int = 8,
                  page_size: int = 16, n_pages: int = 0,
                  default_max_new: int = 32, device=None,
-                 pool_bytes: Optional[int] = None, sp: int = 0,
+                 pool_bytes: Optional[int] = None, sp: int = 0, tp: int = 0,
                  prefix_cache: bool = False, prefill_budget: int = 0,
                  mixed_step: bool = True, spec_k: int = 0,
                  policy_client=None, spill_bytes: int = 0,
@@ -218,8 +218,11 @@ class LLMServer:
         paged pool with ``page_size`` > 0, over dense slot rows with
         ``page_size`` 0; ``n_slots`` 0 serves each ``/generate`` through
         ``generate_fused``.  ``sp`` > 1 stripes every sequence's KV pages
-        over that many shards of a mesh (``make_mesh({"sp": sp})``): over
-        the visible cards, or on the CPU over ``device`` repeated.
+        over that many shards of a mesh, and ``tp`` > 1 serves
+        tensor-parallel over that many (the Megatron split of the weights,
+        the KV storage and the adapter pool on heads; any slot storage):
+        the mesh is ``make_mesh({"tp": tp, "sp": sp})`` over the visible
+        cards, or on the CPU over ``device`` repeated.
         ``prefill_budget`` caps the prompt tokens one mixed service round
         coalesces into its prefill block (0 = two prefill chunks);
         ``mixed_step=False`` runs the sequential advance-then-fuse
@@ -244,6 +247,12 @@ class LLMServer:
             raise ValueError("sp > 1 requires n_slots > 0 and "
                              "page_size > 0 (position striping is a "
                              "paged-pool feature)")
+        if tp > 1 and n_slots <= 0:
+            # only the slot pool is mesh-aware; serving unsplit would
+            # defeat the point of asking for tp
+            raise ValueError("tp > 1 requires n_slots > 0 "
+                             "(tensor-parallel serving rides the "
+                             "continuous batcher)")
         if (n_pages or pool_bytes) and (n_slots <= 0 or page_size <= 0):
             raise ValueError("n_pages and pool_bytes size the paged pool: "
                              "they need n_slots > 0 and page_size > 0")
@@ -264,9 +273,11 @@ class LLMServer:
                              "(multi-adapter serving rides the slot pool)")
         self._adapter_slots = int(adapter_slots)
         mesh = None
-        if sp > 1:
-            mesh = make_mesh({"sp": sp}, devices=(
-                [self.device] * sp if self.device.type == "cpu" else None))
+        axes = {name: n for name, n in (("tp", tp), ("sp", sp)) if n > 1}
+        if axes:
+            n = max(tp, 1) * max(sp, 1)
+            mesh = make_mesh(axes, devices=(
+                [self.device] * n if self.device.type == "cpu" else None))
         self.mesh = mesh
         self.cfg = cfg
         self.params = params
@@ -957,8 +968,10 @@ class LLMServer:
         if not 1 <= prompt_len < len(rows[0]):
             return 400, {"Error": "prompt_len must be in [1, len-1]"}
         if self.mesh is not None:
+            # the mesh's batcher holds the split params; /score would run
+            # the whole model on one device beside them
             return 400, {"Error": "/score is not mesh-aware yet; run "
-                                  "without --sp to score"}
+                                  "without --tp to score"}
         with self._score_lock, health.MONITOR.dispatch_guard(
                 "prefill", rows=len(rows)):
             lp = score_tokens(self.params, self.cfg,
@@ -1037,6 +1050,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     default="kernel",
                     help="paged read path: 'kernel' (the CUDA kernel) or "
                          "'gather' (dense view + plain attention)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel degree over the visible cards "
+                         "(0/1 = one card; on the CPU the device repeated); "
+                         "requires --slots; /score is refused under it")
     ap.add_argument("--sp", type=int, default=0,
                     help="position-striping degree: stripe every "
                          "sequence's KV pages round-robin over this many "
@@ -1124,6 +1141,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--prefix-cache requires --slots and --page-size")
     if args.spec_k and not args.slots:
         ap.error("--spec-k requires --slots")
+    if args.tp > 1 and not args.slots:
+        ap.error("--tp requires --slots")
     if args.spill_bytes and not (args.slots and args.page_size):
         ap.error("--spill-bytes requires --slots and --page-size")
     if args.adapter_slots and not args.slots:
@@ -1173,6 +1192,7 @@ def start_server(args: argparse.Namespace, env=None) -> LLMServer:
                     n_slots=args.slots, page_size=args.page_size,
                     n_pages=args.kv_pages, device=device,
                     pool_bytes=args.kv_pool_bytes or None, sp=args.sp,
+                    tp=args.tp,
                     prefix_cache=args.prefix_cache,
                     prefill_budget=args.prefill_budget,
                     mixed_step=not args.sequential_prefill,

@@ -26,6 +26,13 @@ from stripe ``j % sp``: one sequence's pages, and so its context, span
 every stripe.  Capacity is checked per stripe.  Full-causal configs only,
 as in the JAX package.
 
+Tensor parallelism: under a mesh with a ``tp`` axis the pool splits its
+kv heads over the tp shards as well (``[L, n_pages / sp, Hkv / tp, page,
+D]`` a shard, ``transformer.init_paged_kv``); page ids, the tables and
+the allocator are the same for every tp shard, and every forward reads
+each shard's stores from that shard (the base class lays out the params
+and the adapter pool).
+
 Prefill runs through ``forward_paged_prefill`` and each decode step
 through ``forward_paged_decode``; both read the pool through K2 when
 ``cfg.attn_kernel == "kernel"``.  A windowed prompt longer than its ring
@@ -65,9 +72,11 @@ the pages holding committed positions, the table's structure (range ->
 the blob's local page) and the slot state.  A blob's arrays are the
 pool's leaves at the session's pages, ``[L, n, Hkv, page, D]`` a leaf
 (an int8 store ships ``k.q``/``k.s``), the JAX pool's layout, so a blob
-crosses between the two packages.  A blob carries no striping: import
-places every page on the stripe its range asks for, so a session moves
-between pools of different striping degrees.  A blob names the
+crosses between the two packages.  A blob carries no striping and no
+head split: export gathers every tp shard's kv heads back into the whole
+leaf, and import places every page on the stripe its range asks for and
+each tp shard's block of the heads on that shard, so a session moves
+between pools of different striping and tp degrees.  A blob names the
 session's LoRA adapter, which the receiver re-acquires into its own
 adapter pool by name; the prefix registry keys a prefix donated under an
 adapter by the adapter's name, so only that adapter reuses it.
@@ -311,12 +320,15 @@ class PagedContinuousBatcher(ContinuousBatcher):
         return True
 
     def _leaves(self, which: int, prefix: str) -> list:
-        """[(wire name, [that leaf of every stripe])] of the K (0) or V
-        (1) stores (one stripe, unstriped)."""
-        stores = [pair[which] for pair in
-                  transformer._pool_stripes(self.pools, self.mesh)]
-        named = [_store_arrays(prefix, st) for st in stores]
-        return [(name, [n[i][1] for n in named])
+        """[(wire name, [[that leaf of every tp shard] for every stripe])]
+        of the K (0) or V (1) stores (one stripe unstriped, one tp shard
+        without tp: a tp shard holds a block of the kv heads, dim 2)."""
+        pairs = transformer._pool_stripes(self.pools)
+        sp = self.sp_shards
+        tp = len(pairs) // sp
+        named = [_store_arrays(prefix, pair[which]) for pair in pairs]
+        return [(name, [[named[t * sp + s][i][1] for t in range(tp)]
+                        for s in range(sp)])
                 for i, (name, _) in enumerate(named[0])]
 
     def _by_stripe(self, pages: List[int]) -> list:
@@ -337,17 +349,22 @@ class PagedContinuousBatcher(ContinuousBatcher):
         its own stripe."""
         parts = self._by_stripe(pages)
         arrays = {}
+
+        def heads(shards, ids):
+            # every tp shard's block of the kv heads, whole again
+            got = [x.index_select(1, torch.tensor(ids, device=x.device))
+                   .cpu() for x in shards]
+            return got[0] if len(got) == 1 else torch.cat(got, dim=2)
+
         for which, prefix in ((0, "k"), (1, "v")):
             for name, leaves in self._leaves(which, prefix):
-                got = [(pos, leaves[s].index_select(1, torch.tensor(
-                    ids, device=leaves[s].device)).cpu())
-                    for s, pos, ids in parts]
+                got = [(pos, heads(leaves[s], ids)) for s, pos, ids in parts]
                 if len(got) == 1:       # one stripe holds every page
                     arrays[name] = got[0][1]
                     continue
-                shape = leaves[0].shape
+                shape = got[0][1].shape
                 out = torch.empty((shape[0], len(pages)) + tuple(shape[2:]),
-                                  dtype=leaves[0].dtype)
+                                  dtype=got[0][1].dtype)
                 for pos, part in got:
                     out[:, pos] = part
                 arrays[name] = out
@@ -365,8 +382,9 @@ class PagedContinuousBatcher(ContinuousBatcher):
         for which, prefix in ((0, "k"), (1, "v")):
             for name, leaves in self._leaves(which, prefix):
                 blk = arrays.get(name)
-                shape = leaves[0].shape
-                want = (shape[0], len(pages)) + tuple(shape[2:])
+                shape = leaves[0][0].shape
+                want = (shape[0], len(pages),
+                        shape[2] * len(leaves[0])) + tuple(shape[3:])
                 if blk is None or tuple(blk.shape) != want:
                     raise migrate.BlobError(
                         f"blob array {name!r} of shape "
@@ -376,11 +394,13 @@ class PagedContinuousBatcher(ContinuousBatcher):
         parts = self._by_stripe(pages)
         for leaves, blk in plan:
             for s, pos, ids in parts:
-                leaf = leaves[s]
                 part = blk if len(pos) == len(pages) else blk[:, pos]
-                leaf.index_copy_(1, torch.tensor(ids, device=leaf.device),
-                                 part.to(device=leaf.device,
-                                         dtype=leaf.dtype))
+                for t, leaf in enumerate(leaves[s]):
+                    h = leaf.shape[2]   # tp shard t's block of the heads
+                    leaf.index_copy_(
+                        1, torch.tensor(ids, device=leaf.device),
+                        part[:, :, t * h:(t + 1) * h].to(device=leaf.device,
+                                                         dtype=leaf.dtype))
 
     def export_session(self, rid: int) -> bytes:
         """Serialize DECODING request ``rid`` into one migration blob: the
