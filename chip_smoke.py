@@ -294,7 +294,20 @@ CUDA toolkit.  Phases, each printing one JSON line:
     peak memory; ``merge_lora``'s bf16 weights against the loraized
     model's logits within 2x the distance that rounding the int8 base to
     bf16 weights moves them;
-21. bert: K1 at the encoder shape (B = 32, 12 heads, S = 128, D = 64,
+21. train_sharded, sharded training at Llama-3-8B's widths and 16
+    layers on meshes that repeat the one card, tokens [4, 2049]: (a)
+    ``pipeline_loss_and_grads`` on ``{"pp": 2}`` at 4 microbatches
+    against the flat ``lm_loss`` gradient summed microbatch by
+    microbatch in f32 (the loss within 1e-5 relative, each leaf within
+    1e-2 of its largest magnitude after the bf16 cast, K1 / K3 / K4
+    M.L.(2S-1)/S, M.L and M.L times); (b) ``Trainer(mesh={"pp": 2})``
+    and (c) ``{"dp": 2, "pp": 2}`` for 3 steps (K1 / K3 / K4
+    dp.M.L.(2S-1)/S, dp.M.L and dp.M.L a step, M the pp size), (d)
+    ``{"fsdp": 2, "tp": 2}`` (remat "layer", head chunks of 512) for 2:
+    the loss falling from within 1% of the flat loss, every parameter
+    finite, one profiled step's wall, busy time and ops, the peak
+    memory;
+22. bert: K1 at the encoder shape (B = 32, 12 heads, S = 128, D = 64,
     non-causal) and at S = 512 against its plain version; then
     BERT-base and DistilBERT at full width and depth (random
     seeded bf16 weights) through ``InferenceEngine``: K1 launched once a
@@ -309,7 +322,7 @@ CUDA toolkit.  Phases, each printing one JSON line:
     operations split into GEMMs, K1 and the rest as its
     ``batch_profile``: that profile is taken in phase 3, early, where
     the profiler keeps every launch of a window;
-22. cotenancy: ``tpushare_torch.probe_cotenancy``'s sections, tenants as
+23. cotenancy: ``tpushare_torch.probe_cotenancy``'s sections, tenants as
     worker processes under the allocation env: BERT-base and DistilBERT
     alone at 8 and 4 GiB, two BERT-base tenants at 8 GiB, four
     DistilBERT tenants at 4 GiB, and four 4 GiB tenants allocating
@@ -341,7 +354,9 @@ library call; for K1, K3 and K4 also ``tflops`` and ``bound_share`` on
 their device time, and ``long_*`` at S = 8192, and for K1 ``bert_*``
 at the encoder's shape with the bench run's launches; for K3/K4
 ``backward_device_ms``, the port's whole backward; for K1, K3 and K4
-``sp_attention_launches``, the sp_attention phase's), the
+``sp_attention_launches``, the sp_attention phase's, and
+``train_sharded_launches``, the train_sharded phase's, with its
+launches a step), the
 card's name and power limit, and last the result line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
 without that line, as does a machine without CUDA or a directory that
@@ -5334,7 +5349,7 @@ def phase_moe(torch, card: str):
 
 
 def _all_finite(torch, t) -> bool:
-    flat = t.detach().view(-1)
+    flat = t.detach().reshape(-1)     # a copy of a strided block alone
     step = 1 << 26
     return all(torch.isfinite(flat[i:i + step]).all().item()
                for i in range(0, flat.numel(), step))
@@ -5557,6 +5572,225 @@ def phase_train(torch, card: str):
                          "flash_bwd_dkv": launches[1],
                          "flash_bwd_dq": launches[2]},
             "qlora": qlora}
+
+
+#: the train_sharded phase: Llama-3-8B's widths at 16 layers, 4 rows of
+#: 2,048 tokens; the pipelined gradient at 4 microbatches against the
+#: flat one summed microbatch by microbatch in f32
+SHARDED_LAYERS = 16
+SHARDED_ROWS = 4
+SHARDED_SEQ = 2048
+SHARDED_MICRO = 4
+#: the pipelined loss against the flat mean, relative
+SHARDED_LOSS_RTOL = 1e-5
+#: each leaf's gradient after the bf16 cast, max abs over the flat
+#: leaf's largest magnitude
+SHARDED_GRAD_RTOL = 1e-2
+#: a sharded trainer's first loss against the flat loss, relative
+SHARDED_FIRST_RTOL = 1e-2
+
+
+def _sharded_flat(torch, params, cfg, tokens):
+    """The flat ``lm_loss`` and its gradient summed microbatch by
+    microbatch (one row each) in f32, divided by their count: the loss a
+    float, the gradients bf16 (the cast the step makes), by leaf name."""
+    from tpushare_torch.parallel.train import lm_loss, tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in leaves]
+    losses = []
+    for m in range(SHARDED_MICRO):
+        loss = lm_loss(params, tokens[m:m + 1], cfg)
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            a.add_(g)
+        losses.append(loss.item())
+    grads = []
+    while acc:
+        grads.append(acc.pop(0).div_(SHARDED_MICRO).to(torch.bfloat16))
+    for p in leaves:
+        p.requires_grad_(False)
+    return sum(losses) / SHARDED_MICRO, grads
+
+
+def _sharded_pipeline(torch, params, cfg, tokens) -> dict:
+    """(a): ``pipeline_loss_and_grads`` on ``{"pp": 2}`` at
+    SHARDED_MICRO microbatches against the flat gradient: the loss within
+    SHARDED_LOSS_RTOL, each leaf within SHARDED_GRAD_RTOL after the bf16
+    cast; K1 M.L.(2S-1)/S, K3 and K4 M.L times."""
+    from tpushare_torch.parallel import mesh as pmesh
+    from tpushare_torch.parallel.train import (pipeline_loss_and_grads,
+                                               tree_leaves)
+
+    names = []
+
+    def walk(tree, prefix):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val, f"{prefix}{key}.")
+            else:
+                names.append(prefix + key)
+
+    walk(params, "")
+    t0 = time.perf_counter()
+    flat_loss, flat = _sharded_flat(torch, params, cfg, tokens)
+    torch.cuda.synchronize()
+    flat_s = time.perf_counter() - t0
+    mesh = pmesh.make_mesh({"pp": 2}, devices=["cuda"] * 2)
+    placed = pmesh.shard_params(params, mesh, cfg)
+    tally = [0, 0, 0]
+    t0 = time.perf_counter()
+    with _k134_counted(tally) as got:
+        loss, grads = pipeline_loss_and_grads(placed, tokens, cfg, mesh,
+                                              n_micro=SHARDED_MICRO)
+        torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    grads = tree_leaves(pmesh.gather_params(grads, cfg))
+    loss = loss.item()
+    rel = {}
+    for name, g, w in zip(names, grads, flat):
+        rel[name] = ((g.to(torch.bfloat16).float() - w.float()).abs().max()
+                     / w.float().abs().max()).item()
+    del grads, flat, placed
+    loss_err = abs(loss - flat_loss) / abs(flat_loss)
+    n, S = cfg.n_layers, 2
+    want = [SHARDED_MICRO * n * (2 * S - 1) // S, SHARDED_MICRO * n,
+            SHARDED_MICRO * n]
+    check(loss_err <= SHARDED_LOSS_RTOL,
+          f"1F1B loss {loss!r} against the flat {flat_loss!r}")
+    check(max(rel.values()) <= SHARDED_GRAD_RTOL,
+          f"1F1B gradients past {SHARDED_GRAD_RTOL}: {rel}")
+    check(got == want, f"1F1B K1/K3/K4 {got}, not {want}")
+    worst = max(rel, key=rel.get)
+    return {"n_micro": SHARDED_MICRO, "loss": loss, "flat_loss": flat_loss,
+            "loss_rel_err": loss_err, "grad_rel_err": rel,
+            "worst_leaf": worst, "max_grad_rel_err": rel[worst],
+            "flat_s": flat_s, "pipeline_s": pipe_s,
+            "launches": {"flash_fwd": got[0], "flash_bwd_dkv": got[1],
+                         "flash_bwd_dq": got[2]}}
+
+
+def _sharded_trainer(torch, cfg, axes: dict, tokens, n_steps: int,
+                     flat_loss: float, want, **kw) -> dict:
+    """A ``Trainer`` on ``axes`` over copies of the one card for
+    ``n_steps`` steps on ``tokens``: the loss descending from within
+    SHARDED_FIRST_RTOL of the flat loss, every parameter finite, K1 / K3
+    / K4 ``want`` a step (None: recorded only); the first step's wall,
+    then one profiled step's wall, busy time and ops, then the rest
+    timed; the peak memory."""
+    import numpy as np
+
+    from tpushare_torch.parallel import mesh as pmesh
+    from tpushare_torch.parallel.train import tree_leaves
+    from tpushare_torch.parallel.trainer import Trainer
+    from tpushare_torch.profile_decode import _summary
+    from torch.profiler import ProfilerActivity, profile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = int(np.prod(list(axes.values())))
+    mesh = pmesh.make_mesh(axes, devices=["cuda"] * n)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, mesh=mesh, lr=3e-4, seed=SEED, **kw)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, walls, per_step, prof = [], [], [], None
+    for k in range(n_steps):
+        tally = [0, 0, 0]
+        with _k134_counted(tally) as got:
+            if k == 1:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as p:
+                    t1 = time.perf_counter()
+                    losses.append(trainer.run(iter([tokens]), 1))
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t1
+                prof = _summary(p, wall, wall, 1)
+            else:
+                t1 = time.perf_counter()
+                losses.append(trainer.run(iter([tokens]), 1))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+        walls.append(wall)
+        per_step.append(list(got))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    what = "x".join(f"{a}{v}" for a, v in axes.items())
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{what}: losses {losses} do not descend")
+    first_err = abs(losses[0] - flat_loss) / abs(flat_loss)
+    check(first_err <= SHARDED_FIRST_RTOL,
+          f"{what}: first loss {losses[0]} against the flat {flat_loss}")
+    check(all(_all_finite(torch, p) for p in tree_leaves(trainer.params)),
+          f"{what}: a parameter is not finite")
+    if want is not None:
+        check(all(c == want for c in per_step),
+              f"{what}: K1/K3/K4 a step {per_step}, not {want}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"axes": axes, "steps": n_steps, "init_s": init_s,
+            "losses": losses, "first_loss_rel_err": first_err,
+            "step_walls_s": walls, **{k: prof[k] for k in STEP_KEYS},
+            "top_kernels": prof["top_kernels"][:5],
+            "peak_memory_gb": peak_gb,
+            "launches_per_step": {"flash_fwd": per_step[0][0],
+                                  "flash_bwd_dkv": per_step[0][1],
+                                  "flash_bwd_dq": per_step[0][2]},
+            "launches": [sum(c[i] for c in per_step) for i in range(3)]}
+
+
+def phase_train_sharded(torch, card: str):
+    """Sharded training at Llama-3-8B's widths (16 layers), on meshes
+    that repeat the one card: (a) the 1F1B gradient on ``{"pp": 2}``
+    against the flat one; Trainers on (b) ``{"pp": 2}``, (c) ``{"dp": 2,
+    "pp": 2}`` (the default microbatches: the pp size) for 3 steps and
+    (d) ``{"fsdp": 2, "tp": 2}`` (remat "layer", head chunks of 512) for
+    2."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpushare_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=SHARDED_LAYERS)
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 53).integers(
+        0, cfg.vocab, (SHARDED_ROWS, SHARDED_SEQ + 1)), device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = tf.init_params(cfg, seed=SEED, device="cuda")
+    t0 = time.perf_counter()
+    pipe = _sharded_pipeline(torch, params, cfg, tokens)
+    pipe["phase_s"] = time.perf_counter() - t0
+    pipe["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    n, S = cfg.n_layers, 2
+    runs = {}
+    for key, axes, steps, kw in (
+            ("pp", {"pp": 2}, 3, {}),
+            ("dp_pp", {"dp": 2, "pp": 2}, 3, {}),
+            ("fsdp_tp", {"fsdp": 2, "tp": 2}, 2,
+             {"remat": "layer", "head_chunk": 512})):
+        dp = axes.get("dp", 1)
+        m = axes.get("pp", 1)        # the Trainer's microbatches
+        want = ([dp * m * n * (2 * S - 1) // S, dp * m * n, dp * m * n]
+                if "pp" in axes else None)
+        t0 = time.perf_counter()
+        runs[key] = _sharded_trainer(torch, cfg, axes, tokens, steps,
+                                     pipe["flat_loss"], want, **kw)
+        runs[key]["phase_s"] = time.perf_counter() - t0
+    launches = [pipe["launches"][k] for k in
+                ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")]
+    for r in runs.values():
+        launches = [a + b for a, b in zip(launches, r["launches"])]
+    return {"model": "llama3-8b", "card": card, "layers": n,
+            "batch": [SHARDED_ROWS, SHARDED_SEQ + 1], "pipeline": pipe,
+            **runs,
+            "launches": {"flash_fwd": launches[0],
+                         "flash_bwd_dkv": launches[1],
+                         "flash_bwd_dq": launches[2]}}
 
 
 #: how many ragged requests the pass_mask engine serves, from how many
@@ -5838,6 +6072,10 @@ def main() -> int:
         train = run("train", phase_train, torch, dev["nvidia_smi"])
         gc.collect()
         torch.cuda.empty_cache()
+        shard = run("train_sharded", phase_train_sharded, torch,
+                    dev["nvidia_smi"])
+        gc.collect()
+        torch.cuda.empty_cache()
         enc = run("bert", phase_bert, torch, dev["nvidia_smi"],
                   k1["bert_batch"])
         run("cotenancy", phase_cotenancy, torch, dev["nvidia_smi"])
@@ -5943,6 +6181,13 @@ def main() -> int:
             "replaces": f"tpushare/ops/attention.py:{line}",
             "launches": train["launches"][name],
             "qlora_launches": train["qlora"]["launches"][name],
+            # the train_sharded phase: the 1F1B gradient and the three
+            # sharded trainers
+            "train_sharded_launches": shard["launches"][name],
+            "train_sharded_launches_per_step": {
+                "pipeline": shard["pipeline"]["launches"][name],
+                **{k: shard[k]["launches_per_step"][name]
+                   for k in ("pp", "dp_pp", "fsdp_tp")}},
             "max_abs_err": max(bwd["max_abs_err"][o] for o in outs.split()),
             "ms": bwd[f"{kern}_ms"], "kernel_ms": bwd[f"{kern}_ms"],
             # one plain function and one library backward compute K3 and
@@ -6001,6 +6246,13 @@ def main() -> int:
          # the moe phase's /score, the train phase's QLoRA steps
          "moe_launches": moe["server"]["launches"]["flash_fwd"],
          "qlora_launches": train["qlora"]["launches"]["flash_fwd"],
+         # the train_sharded phase: the 1F1B gradient at 4 microbatches,
+         # then the sharded trainers' steps
+         "train_sharded_launches": shard["launches"]["flash_fwd"],
+         "train_sharded_launches_per_step": {
+             "pipeline": shard["pipeline"]["launches"]["flash_fwd"],
+             **{k: shard[k]["launches_per_step"]["flash_fwd"]
+                for k in ("pp", "dp_pp", "fsdp_tp")}},
          # the sp_attention phase's ring and Ulysses runs, alone and
          # through forward(attention_fn=)
          "sp_attention_launches": sp["launches"]["flash_fwd"],

@@ -107,9 +107,15 @@ def test_make_mesh_takes_pp_and_cites_the_axes_to_come():
     assert m.shape == {"tp": 2, "sp": 2, "pp": 2}
     assert m.submesh(pp=1).axis_names == ("tp", "sp")
     assert "pp" in tmesh.PORTED_AXES
-    for axis, item in (("ep", "A.12.4"), ("dp", "A.11"), ("fsdp", "A.11")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmesh.make_mesh({axis: 2}, devices=[CPU] * 2)
+    with pytest.raises(NotImplementedError, match="A.12.4"):
+        tmesh.make_mesh({"ep": 2}, devices=[CPU] * 2)
+    # dp and fsdp are ported (sharded training): beside pp, the mesh is
+    # the reference's
+    for axis in ("dp", "fsdp"):
+        got = tmesh.make_mesh({axis: 2, "pp": 2}, devices=[CPU] * 4)
+        want = jmesh.make_mesh({axis: 2, "pp": 2})
+        assert got.axis_names == tuple(want.axis_names)
+        assert got.shape == dict(want.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -219,9 +219,12 @@ def test_make_mesh_never_puts_stripes_on_a_shared_card_unasked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmesh.make_mesh({"sp": 2})
-    for axis in ("ep", "dp"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tmesh.make_mesh({axis: 1}, devices=[CPU])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tmesh.make_mesh({"ep": 1}, devices=[CPU])
+    # dp is ported (sharded training): a dp axis of one is the
+    # reference's mesh
+    assert tmesh.make_mesh({"dp": 1}, devices=[CPU]).shape == \
+        dict(jax_mesh({"dp": 1}).shape)
     # pipeline stages are ported: a pp axis of one stage is a mesh
     assert tmesh.make_mesh({"pp": 1}, devices=[CPU]).shape == {"pp": 1}
     m = tmesh.make_mesh({"sp": -1}, devices=[CPU] * 3)

@@ -236,9 +236,18 @@ def test_make_mesh_lays_shards_out_row_major():
     jgrid = jmesh.make_mesh({"tp": 2, "sp": 2}).devices
     ids = [d.id for d in jax.devices()[:4]]
     assert [[d.id for d in row] for row in jgrid] == [ids[:2], ids[2:]]
-    for axis in ("ep", "dp", "fsdp"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tmesh.make_mesh({axis: 2}, devices=[CPU] * 2)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tmesh.make_mesh({"ep": 2}, devices=[CPU] * 2)
+    # dp and fsdp are ported (sharded training): beside tp, laid out
+    # row-major as the reference's grid
+    for axis in ("dp", "fsdp"):
+        assert tmesh.make_mesh({axis: 2, "tp": 2}, devices=[CPU] * 4
+                               ).shape == {axis: 2, "tp": 2}
+        grid2 = tmesh.Mesh((axis, "tp"), {axis: 2, "tp": 2}, tuple(devs))
+        assert [grid2.device(**{axis: a}, tp=t) for a in range(2)
+                for t in range(2)] == devs
+        jgrid2 = jmesh.make_mesh({axis: 2, "tp": 2}).devices
+        assert [[d.id for d in row] for row in jgrid2] == [ids[:2], ids[2:]]
     # pipeline stages are ported: pp is a mesh axis like tp and sp
     assert tmesh.make_mesh({"pp": 2}, devices=[CPU] * 2).shape == {"pp": 2}
     assert tattn.tp_degree(port_mesh(tp=2)) == 2

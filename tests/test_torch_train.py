@@ -33,6 +33,7 @@ from tpushare_torch.models import transformer as ttf
 from tpushare_torch.models.bridge import params_from_numpy
 from tpushare_torch.ops import attention as tattn
 from tpushare_torch.parallel import train as ttrain
+from tpushare_torch.parallel.mesh import make_mesh
 from tpushare_torch.parallel.trainer import Trainer
 from tpushare_torch.utils import checkpoint as tckpt
 from tpushare_torch.utils import data as tdata
@@ -332,8 +333,12 @@ def test_trainer_descends_and_refuses_what_is_not_ported():
     last = t.run(itertools.repeat(fixed), 5,
                  on_step=lambda s, l: losses.append(l))
     assert losses[-1] < losses[0] and last == losses[-1] and t.step == 5
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # a mesh must be the port's Mesh; LoRA does not run the 1F1B step
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh"):
         Trainer(_small_cfg(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="lora_rank with a pp mesh"):
+        Trainer(_small_cfg(), lora_rank=4,
+                mesh=make_mesh({"pp": 2}, devices=["cpu"] * 2))
     # a LoRA trainer trains its adapters: the loss falls on the batch
     lt = Trainer(_small_cfg(), lora_rank=4, lr=1e-2, device="cpu")
     lora_losses = []

@@ -580,15 +580,15 @@ def _mm_ad(x, w, lora, name: str, partial: bool = False):
     carries adapters: the one composition point (a quantized base stays
     inside ``_mm``, QLoRA-style).  ``partial``: a row-parallel tp
     shard's partial product, returned in f32 for :func:`_tp_sum` (on the
-    card a bf16 product is one GEMM with f32 output, so that the partials
-    are rounded once, after their sum, as the whole GEMM rounds), its
-    adapter delta added before the sum."""
+    card a bf16 product is one GEMM with f32 output, :class:`_HeadMM`,
+    differentiable, so that the partials are rounded once, after their
+    sum, as the whole GEMM rounds), its adapter delta added before the
+    sum."""
     if not partial:
         y = _mm(x, w)
     elif x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                     out_dtype=torch.float32).reshape(*x.shape[:-1],
-                                                      w.shape[-1])
+        y = _HeadMM.apply(x.reshape(-1, x.shape[-1]), w).reshape(
+            *x.shape[:-1], w.shape[-1])
     else:
         y = _mm(x, w).float()
     if lora is None:

@@ -165,7 +165,7 @@ def combine(adapters: Dict, frozen):
 
 
 def make_lora_train_step(cfg, optimizer, remat: str = "none",
-                         head_chunk: int = 0):
+                         head_chunk: int = 0, mesh=None):
     """``(params, opt_state, tokens [B, S+1]) -> (params, opt_state,
     loss)`` differentiating ONLY the adapters of a loraized tree, with
     ``opt_state = optimizer.init(partition(params)[0])``.  The frozen base
@@ -173,16 +173,35 @@ def make_lora_train_step(cfg, optimizer, remat: str = "none",
     enters ``torch.autograd.grad`` or the optimizer, so its memory is
     the forward's alone.  ``remat`` (none / layer / full) and
     ``head_chunk`` are ``parallel.train.make_loss_fn``'s.  The adapters
-    and the state update in place; the loss is a device scalar."""
-    from ..parallel.train import make_loss_fn
+    and the state update in place; the loss is a device scalar.
 
+    ``mesh`` (a ``dp`` axis alone): the params and the state's moments
+    are ``parallel.mesh.replicate``'s replicas, and each dp shard runs
+    its rows (``parallel.train.sharded_loss_and_grads``)."""
+    from ..parallel.mesh import Replicas
+    from ..parallel.train import make_loss_fn, sharded_loss_and_grads
+
+    if mesh is not None and set(mesh.axis_names) - {"dp"}:
+        raise NotImplementedError(
+            "LoRA training on a mesh runs over dp alone; other axes wait "
+            "for ROADMAP A.17")
     loss_fn = make_loss_fn(cfg, remat, head_chunk)
 
-    def step(params, opt_state, tokens):
-        adapters, frozen = partition(params)
+    def adapters_of(tree):
+        adapters, frozen = partition(tree)
         for t in quant.tensor_leaves(frozen):
             if t is not None and t.is_floating_point():
                 t.requires_grad_(False)
+        return adapters
+
+    def step(params, opt_state, tokens):
+        if mesh is not None:
+            loss, grads = sharded_loss_and_grads(loss_fn, params, tokens,
+                                                 mesh, trained=adapters_of)
+            optimizer.update(Replicas(adapters_of(r) for r in params),
+                             grads, opt_state)
+            return params, opt_state, loss
+        adapters = adapters_of(params)
         leaves = list(adapters.values())
         for p in leaves:
             p.requires_grad_(True)

@@ -23,9 +23,20 @@ stage), stage p's part laid over the other axes on
 lie row-major over the axes as they are named, as ``jax.sharding.Mesh``
 lays them: on ``{"tp": 2, "sp": 2}`` shard (t, s) is ``devices[t * sp +
 s]`` (:meth:`Mesh.device`), and on ``{"tp", "sp", "pp"}`` shard (p, t, s)
-is ``mesh.device(pp=p, tp=t, sp=s)``.  The ``ep`` axis waits for ROADMAP
-A.12.4 and ``dp`` / ``fsdp`` for sharded training (A.11); a mesh naming
-them raises.
+is ``mesh.device(pp=p, tp=t, sp=s)``.
+
+Two more axes lay out training (:func:`shard_params`, :func:`shard_batch`):
+``dp``, data parallelism: the params once a dp shard (a :class:`Replicas`,
+replica i laid as below on ``mesh.submesh(dp=i)``, the very same tensors
+where two shards' devices coincide) and the batch split into row blocks,
+block i on ``mesh.device(dp=i)``; and ``fsdp``, the ZeRO-3 split of the
+reference's ``SHARDING_RULES``: ``embed``, ``lm_head`` and the column
+projections (wq, wk, wv, w_gate, w_up) split their dim -2, the row ones
+(wo, w_down) their dim -1, into one block an fsdp shard (an
+:class:`FsdpBlocks`, block f on ``mesh.device(fsdp=f, ...)``); the steps
+gather a leaf's blocks at use (:func:`gather_fsdp`) and autograd hands
+each block its slice of the gradient back.  The ``ep`` axis waits for
+ROADMAP A.12.4; a mesh naming it raises.
 """
 
 from __future__ import annotations
@@ -37,10 +48,17 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 #: the mesh axes the port runs
-PORTED_AXES = ("tp", "sp", "pp")
+PORTED_AXES = ("tp", "sp", "pp", "dp", "fsdp")
 
 #: where each axis the port does not run yet waits, by ROADMAP item
-AXES_TO_COME = {"ep": "A.12.4", "dp": "A.11", "fsdp": "A.11"}
+AXES_TO_COME = {"ep": "A.12.4"}
+
+#: the fsdp dim of each leaf the reference's ``SHARDING_RULES`` split over
+#: ``fsdp`` (its rules right-aligned on the leaf): ``P("fsdp", "tp")``
+#: puts fsdp on dim -2, ``P("tp", "fsdp")`` on dim -1; every other leaf
+#: (norm scales, an MoE layer's router and experts) stays whole
+FSDP_DIMS = {"embed": -2, "lm_head": -2, "wq": -2, "wk": -2, "wv": -2,
+             "w_gate": -2, "w_up": -2, "wo": -1, "w_down": -1}
 
 
 class Staged(tuple):
@@ -52,6 +70,54 @@ class Staged(tuple):
     so the KV tree walks (``transformer.kv_tree_map``) keep it one."""
 
     __slots__ = ()
+
+
+class Replicas(tuple):
+    """One tree a ``dp`` shard, in shard order: :func:`shard_params` on a
+    mesh with a ``dp`` axis.  Replica i is laid out on
+    ``mesh.submesh(dp=i)``; two replicas whose devices coincide are the
+    same tree, so a card holds each tensor once."""
+
+    __slots__ = ()
+
+
+class FsdpBlocks(tuple):
+    """A leaf split along dim -2 into one block an ``fsdp`` shard, block f
+    on ``mesh.device(fsdp=f, ...)`` (:data:`FSDP_DIMS`)."""
+
+    __slots__ = ()
+    dim = -2
+
+
+class FsdpBlocksLast(FsdpBlocks):
+    """:class:`FsdpBlocks` along dim -1 (the row-parallel leaves)."""
+
+    __slots__ = ()
+    dim = -1
+
+
+def view_key(t: torch.Tensor) -> tuple:
+    """What makes two tensors the same elements: device, storage, offset,
+    shape, strides and dtype.  Two views with one key are one set of
+    elements; the optimizer steps them once."""
+    return (t.device, t.untyped_storage().data_ptr(), t.storage_offset(),
+            tuple(t.shape), tuple(t.stride()), t.dtype)
+
+
+class _Placer:
+    """``x.to(dev)`` that hands back the same tensor for the same elements
+    placed on the same device again (a replica of a shared card, a stage
+    of two dp shards on one card)."""
+
+    def __init__(self):
+        self._placed = {}
+
+    def __call__(self, x: torch.Tensor, dev) -> torch.Tensor:
+        key = (view_key(x), canonical_device(dev))
+        y = self._placed.get(key)
+        if y is None:
+            y = self._placed[key] = x.detach().to(key[1])
+        return y
 
 
 def stage_layer_ranges(n_layers: int, pp: int) -> Tuple[Tuple[int, int], ...]:
@@ -193,7 +259,8 @@ def _split(x: torch.Tensor, dim: int, t: int, n: int) -> torch.Tensor:
 
 
 def shard_params(params, mesh: Mesh, cfg):
-    """The params laid over the mesh's ``tp`` and ``pp`` axes.
+    """The params laid over the mesh's ``tp``, ``pp``, ``fsdp`` and
+    ``dp`` axes.
 
     ``tp``, the Megatron split: ``{"embed", "final_scale", "lm_head",
     "layers": (tree_0, ..., tree_{tp-1})}``, tree t holding tp shard t's
@@ -220,45 +287,196 @@ def shard_params(params, mesh: Mesh, cfg):
     ``mesh.submesh(pp=p)``; ``embed``, the final norm and ``lm_head`` stay
     on the first device.
 
+    ``fsdp``: each plain tensor leaf :data:`FSDP_DIMS` names (after its tp
+    block is taken) becomes an :class:`FsdpBlocks` of one block an fsdp
+    shard on ``mesh.device(fsdp=f, tp=t)``, ``embed`` and ``lm_head`` on
+    ``mesh.device(fsdp=f)``; where fsdp does not divide the dim the leaf
+    stays whole on fsdp shard 0's device, the reference's legalization.
+
+    ``dp``: a :class:`Replicas` of the layout above, replica i on
+    ``mesh.submesh(dp=i)``.
+
     Leaves are sliced, never copied whole: a shard on the params' own
     device holds views of them (a stage's slab and a column block are
     views the matrix products read in place), one on another device a
-    copy of its block only; nothing else of the whole tree is kept."""
-    dev0 = mesh.device()
-    out = {k: v.to(dev0) if isinstance(v, torch.Tensor)
-           else {n: t.to(dev0) for n, t in v.items()}
-           for k, v in params.items() if k != "layers"}
-    stages = stage_meshes(mesh, cfg.n_layers)
-    if stages is None:
-        out["layers"] = _tp_trees(params["layers"], mesh, cfg)
-    else:
-        out["layers"] = Staged(_tp_trees(_slab(params["layers"], a, b),
-                                         sub, cfg)
-                               for _, (a, b), sub in stages)
+    copy of its block only; nothing else of the whole tree is kept.  The
+    same elements placed on one device twice are one tensor."""
+    put = _Placer()
+    if "dp" not in mesh.axis_names:
+        return _shard_replica(params, mesh, cfg, put)
+    subs = [mesh.submesh(dp=i) for i in range(mesh.shape["dp"])]
+    trees = [_shard_replica(params, subs[0], cfg, put)]
+    for sub in subs[1:]:
+        trees.append(trees[0] if sub.devices == subs[0].devices
+                     else _shard_replica(params, sub, cfg, put))
+    return Replicas(trees)
+
+
+def _shard_replica(params, mesh: Mesh, cfg, put: _Placer):
+    """:func:`shard_params` on a mesh without a ``dp`` axis."""
+    out = {}
+    for k, v in params.items():
+        if k != "layers":
+            out[k] = _fsdp_put(k, v, mesh, put)
+            continue
+        stages = stage_meshes(mesh, cfg.n_layers)
+        out[k] = (_tp_trees(v, mesh, cfg, put) if stages is None else
+                  Staged(_tp_trees(_slab(v, a, b), sub, cfg, put)
+                         for _, (a, b), sub in stages))
     return out
 
 
-def _tp_trees(layers, mesh: Mesh, cfg) -> tuple:
+def _fsdp_put(name: str, leaf, mesh: Mesh, put: _Placer, **index):
+    """``leaf`` on ``shard_device(mesh, **index)``; a plain tensor that
+    :data:`FSDP_DIMS` names split into :class:`FsdpBlocks` over the
+    mesh's ``fsdp`` axis where fsdp divides its dim."""
+    n = mesh.shape["fsdp"] if "fsdp" in mesh.axis_names else 1
+    if isinstance(leaf, dict):
+        dev = shard_device(mesh, **index)
+        return {k: put(x, dev) for k, x in leaf.items()}
+    dim = FSDP_DIMS.get(name)
+    if n == 1 or dim is None or leaf.dim() < 2 or leaf.shape[dim] % n:
+        return put(leaf, shard_device(mesh, **index))
+    blocks = FsdpBlocks if dim == -2 else FsdpBlocksLast
+    return blocks(put(_split(leaf, dim, f, n),
+                      shard_device(mesh, fsdp=f, **index))
+                  for f in range(n))
+
+
+def _tp_trees(layers, mesh: Mesh, cfg, put: _Placer) -> tuple:
     """One tree of layer leaves a tp shard of ``mesh`` (one tree on a
-    mesh without a tp axis): :func:`shard_params`' tp layout."""
+    mesh without a tp axis): :func:`shard_params`' tp layout, each leaf
+    split further over ``fsdp``."""
     from ..models import transformer
 
     tp = mesh.shape.get("tp", 1)
     split = transformer.tp_splits(layers, cfg, tp)
     trees = []
     for t in range(tp):
-        dev = shard_device(mesh, tp=t)
         tree = {}
         for name, leaf in layers.items():
             if split and name in transformer.TP_COL_LEAVES:
-                tree[name] = _split(leaf, -1, t, tp).to(dev)
+                leaf = _split(leaf, -1, t, tp)
             elif split and name in transformer.TP_ROW_LEAVES:
-                tree[name] = _split(leaf, -2, t, tp).to(dev)
-            elif t == 0 or not split:
-                tree[name] = ({n: x.to(dev) for n, x in leaf.items()}
-                              if isinstance(leaf, dict) else leaf.to(dev))
+                leaf = _split(leaf, -2, t, tp)
+            elif split and t > 0:
+                continue
+            tree[name] = _fsdp_put(name, leaf, mesh, put, tp=t)
         trees.append(tree)
     return tuple(trees)
+
+
+def _whole(leaf, device):
+    """A leaf of a placed tree whole on ``device``: an
+    :class:`FsdpBlocks`' blocks concatenated, a weight dict's tensors
+    moved."""
+    if isinstance(leaf, FsdpBlocks):
+        return torch.cat([b.to(device) for b in leaf], leaf.dim)
+    if isinstance(leaf, dict):
+        return {k: _whole(x, device) for k, x in leaf.items()}
+    return leaf.to(device)
+
+
+def _whole_layers(layers, cfg, device):
+    """The stacked ``[L, ...]`` layer leaves of a placed ``layers``: a
+    :class:`Staged`'s parts concatenated on dim 0, tp trees' blocks on
+    the dim their split took."""
+    from ..models import transformer
+
+    if isinstance(layers, Staged):
+        parts = [_whole_layers(p, cfg, device) for p in layers]
+
+        def cat(xs):
+            if isinstance(xs[0], dict):
+                return {k: cat([x[k] for x in xs]) for k in xs[0]}
+            return torch.cat(xs, 0)
+
+        return {k: cat([p[k] for p in parts]) for k in parts[0]}
+    if not isinstance(layers, tuple):
+        return {k: _whole(v, device) for k, v in layers.items()}
+    split = transformer.tp_splits(layers, cfg, len(layers))
+    out = {}
+    for name, leaf in layers[0].items():
+        if split and name in transformer.TP_COL_LEAVES + \
+                transformer.TP_ROW_LEAVES:
+            dim = -1 if name in transformer.TP_COL_LEAVES else -2
+            out[name] = torch.cat([_whole(tree[name], device)
+                                   for tree in layers], dim)
+        else:
+            out[name] = _whole(leaf, device)
+    return out
+
+
+@torch.no_grad()
+def gather_params(placed, cfg, device=None):
+    """The whole tree of a placed one (:func:`shard_params`' layout, or a
+    tree of tensors another placement made: the optimizer's moments, an
+    adapter dict): replica 0 of :class:`Replicas`, fsdp blocks, tp blocks
+    and stage slabs put back together, every tensor on ``device`` (default:
+    the first leaf's).  Each tensor is a copy only where a block is
+    joined or moved."""
+    if isinstance(placed, Replicas):
+        placed = placed[0]
+    if device is None:
+        first = placed
+        while not isinstance(first, torch.Tensor):
+            first = next(iter(first.values() if isinstance(first, dict)
+                              else first))
+        device = first.device
+    return {k: (_whole_layers(v, cfg, device) if k == "layers"
+                else _whole(v, device)) for k, v in placed.items()}
+
+
+def gather_fsdp(tree):
+    """``tree`` with each :class:`FsdpBlocks` joined into one tensor on
+    its first block's device (``torch.cat``, differentiable: the
+    backward hands each block its slice of the gradient, the
+    reduce-scatter); every other leaf as it is."""
+    if isinstance(tree, FsdpBlocks):
+        dev = tree[0].device
+        return torch.cat([b.to(dev) for b in tree], tree.dim)
+    if isinstance(tree, dict):
+        return {k: gather_fsdp(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(gather_fsdp(v) for v in tree)
+    return tree
+
+
+def replicate(tree, mesh: Mesh, axis: str = "dp"):
+    """A tree of tensors once a shard of ``axis``: a :class:`Replicas`,
+    replica i's tensors on ``mesh.device(axis=i)`` (one tree where two
+    shards share a device); ``tree`` itself without the axis."""
+    if axis not in mesh.axis_names:
+        return tree
+    put, placed = _Placer(), {}
+
+    def place(x, dev):
+        if isinstance(x, dict):
+            return {k: place(v, dev) for k, v in x.items()}
+        return put(x, dev)
+
+    for i in range(mesh.shape[axis]):
+        dev = mesh.device(**{axis: i})
+        if dev not in placed:
+            placed[dev] = place(tree, dev)
+    return Replicas(placed[mesh.device(**{axis: i})]
+                    for i in range(mesh.shape[axis]))
+
+
+def shard_batch(batch, mesh: Mesh, axis: str = "dp"):
+    """The batch ``[B, ...]`` split on its leading dim over ``axis``: a
+    tuple of one row block a shard, block i on ``mesh.device(axis=i)``.
+    Without the axis, or where the axis does not divide B (the
+    reference's legalization), the batch stays whole and is returned as
+    it is."""
+    if axis not in mesh.axis_names:
+        return batch
+    n, b = mesh.shape[axis], batch.shape[0]
+    if b % n:
+        return batch
+    batch = torch.as_tensor(batch)
+    return tuple(batch[i * b // n:(i + 1) * b // n].to(
+        mesh.device(**{axis: i})) for i in range(n))
 
 
 def shard_kv_storage(storage, mesh: Mesh, axis: str = "tp",

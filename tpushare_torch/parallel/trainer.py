@@ -1,9 +1,17 @@
 """Training loop with periodic checkpointing and resume.
 
-Counterpart of ``tpushare/parallel/trainer.py`` on one device: a
-restarted trainer resumes from the latest step-numbered checkpoint
+Counterpart of ``tpushare/parallel/trainer.py``: a restarted trainer
+resumes from the latest step-numbered checkpoint
 (:mod:`tpushare_torch.utils.checkpoint`, which commits a new step before
 it prunes old ones) and continues bit-identically.
+
+``mesh`` picks the step as the reference does: a ``pp`` axis the 1F1B
+step (``make_pipeline_train_step``, data-parallel over a ``dp`` axis
+beside it), any other mesh the single-program step over the sharded
+params and batch (``make_train_step(mesh=)``).  Params and moments are
+placed by ``parallel.mesh.shard_params``, every batch by ``shard_batch``.
+A checkpoint holds the whole (gathered) tree, so it resumes on another
+mesh or on none.
 
 ``lora_rank`` > 0 fine-tunes adapters on the seeded base
 (``ops.lora``): the params are the loraized tree, the optimizer state
@@ -14,6 +22,7 @@ MoE config the adapters sit on the attention projections only.
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Callable, Iterator, Optional
 
@@ -23,18 +32,23 @@ from .. import default_device
 from ..models import transformer
 from ..ops import lora
 from ..utils import checkpoint
-from .train import make_optimizer, make_train_step
+from .mesh import (Mesh, Replicas, gather_params, replicate, shard_batch,
+                   shard_params)
+from .train import (make_optimizer, make_pipeline_train_step,
+                    make_train_step)
 
 log = logging.getLogger("tpushare_torch.trainer")
 
 
 class Trainer:
     """``cfg``'s model trained from fresh seeded params (or the latest
-    checkpoint under ``ckpt_dir``) on ``device`` (default ``cuda``).
-    ``head_chunk`` > 0 turns on the chunked loss
+    checkpoint under ``ckpt_dir``) on ``device`` (default ``cuda``), or on
+    ``mesh`` (a ``parallel.mesh.Mesh``; its first device then stands for
+    ``device``).  ``head_chunk`` > 0 turns on the chunked loss
     (:func:`~tpushare_torch.parallel.train.lm_loss`).  ``lora_rank`` > 0
     trains rank-``lora_rank`` adapters (scale ``lora_alpha / lora_rank``)
-    on every projection the tree has, the base frozen."""
+    on every projection the tree has, the base frozen; on a mesh only
+    over ``dp``."""
 
     def __init__(self, cfg: transformer.ModelConfig, mesh=None,
                  ckpt_dir: Optional[str] = None,
@@ -46,21 +60,39 @@ class Trainer:
                  total_steps: int = 0, grad_clip_norm: float = 0.0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
                  head_chunk: int = 0, device=None):
-        if mesh is not None:
-            raise ValueError("mesh: sharded training is not ported yet "
-                             "(ROADMAP A.11)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a tpushare_torch.parallel.mesh"
+                             f".Mesh (make_mesh), got {type(mesh).__name__}")
+        pp = mesh is not None and "pp" in mesh.axis_names
+        if lora_rank > 0 and pp:
+            raise ValueError("lora_rank with a pp mesh is not supported (the "
+                             "1F1B step differentiates whole stage params)")
+        if lora_rank > 0 and mesh is not None and (
+                {"tp", "fsdp"} & set(mesh.axis_names)):
+            raise NotImplementedError(
+                "lora_rank on a tp or fsdp mesh waits for ROADMAP A.17 "
+                "(the port trains adapters on one device or over dp)")
         self.cfg = cfg
+        self.mesh = mesh
         self.lora_rank = lora_rank
         self.lora_alpha = lora_alpha
-        self.device = default_device(device)
+        self.device = (mesh.device() if mesh is not None
+                       else default_device(device))
         self.save_every = save_every
         self.optimizer = make_optimizer(
             lr=lr, schedule=schedule, warmup_steps=warmup_steps,
             total_steps=total_steps, grad_clip_norm=grad_clip_norm)
-        make_step = (lora.make_lora_train_step if lora_rank > 0
-                     else make_train_step)
-        self.step_fn = make_step(cfg, self.optimizer, remat=remat,
-                                 head_chunk=head_chunk)
+        if lora_rank > 0:
+            self.step_fn = lora.make_lora_train_step(
+                cfg, self.optimizer, remat=remat, head_chunk=head_chunk,
+                mesh=mesh)
+        elif pp:
+            self.step_fn = make_pipeline_train_step(
+                cfg, self.optimizer, mesh,
+                dp_axis="dp" if "dp" in mesh.axis_names else None)
+        else:
+            self.step_fn = make_train_step(cfg, self.optimizer, remat=remat,
+                                           head_chunk=head_chunk, mesh=mesh)
         self._mgr = (checkpoint.make_checkpoint_manager(ckpt_dir, max_to_keep)
                      if ckpt_dir else None)
         self.step = 0
@@ -70,17 +102,30 @@ class Trainer:
         # init beside it (two copies of params + state at the resume)
         if restored is not None and lora_rank > 0:
             _, frozen = lora.partition(self._fresh_params(seed))
-            self.params = lora.combine(restored["adapters"], frozen)
+            params = lora.combine(restored["adapters"], frozen)
         elif restored is not None:
-            self.params = restored["params"]
+            params = restored["params"]
         else:
-            self.params = self._fresh_params(seed)
+            params = self._fresh_params(seed)
         if restored is not None:
-            self.opt_state = restored["opt_state"]
+            opt_state = restored["opt_state"]
             self.step = latest
             log.info("resumed from step %d", latest)
         else:
-            self.opt_state = self.optimizer.init(self._trained())
+            opt_state = self.optimizer.init(
+                lora.partition(params)[0] if lora_rank > 0 else params)
+        if mesh is not None:
+            # the moments mirror the trained tree, so one placement lays
+            # out both (adapters train over dp alone: replicas of the
+            # loraized tree)
+            place = (functools.partial(replicate, mesh=mesh)
+                     if lora_rank > 0
+                     else functools.partial(shard_params, mesh=mesh,
+                                            cfg=cfg))
+            params = place(params)
+            opt_state = {**opt_state, "mu": place(opt_state["mu"]),
+                         "nu": place(opt_state["nu"])}
+        self.params, self.opt_state = params, opt_state
 
     def _fresh_params(self, seed: int):
         """The seeded params, loraized when adapters train."""
@@ -92,10 +137,13 @@ class Trainer:
         return params
 
     def _trained(self):
-        """What the optimizer updates: the params, or the adapter dict."""
-        if self.lora_rank > 0:
-            return lora.partition(self.params)[0]
-        return self.params
+        """What the optimizer updates: the params, or the adapter dict
+        (one a dp replica on a mesh)."""
+        if self.lora_rank == 0:
+            return self.params
+        if isinstance(self.params, Replicas):
+            return Replicas(lora.partition(r)[0] for r in self.params)
+        return lora.partition(self.params)[0]
 
     def run(self, batches: Iterator, n_steps: int,
             on_step: Optional[Callable[[int, float], None]] = None) -> float:
@@ -106,6 +154,8 @@ class Trainer:
         loss = None
         for _ in range(n_steps):
             tokens = torch.as_tensor(next(batches), device=self.device)
+            if self.mesh is not None:
+                tokens = shard_batch(tokens, self.mesh)
             self.params, self.opt_state, loss = self.step_fn(
                 self.params, self.opt_state, tokens)
             self.step += 1
@@ -117,10 +167,21 @@ class Trainer:
         return float(loss) if loss is not None else float("nan")
 
     def save(self) -> None:
+        """Commit the step's state: the params (or adapters) and the
+        optimizer state, gathered whole onto the host on a mesh."""
         if not self._mgr:
             return
         key = "adapters" if self.lora_rank > 0 else "params"
-        checkpoint.save_step(self._mgr, self.step,
-                             {key: self._trained(),
-                              "opt_state": self.opt_state})
+        state = {key: self._trained(), "opt_state": self.opt_state}
+        if self.mesh is not None:
+            def whole(tree):
+                if self.lora_rank > 0:
+                    tree = tree[0] if isinstance(tree, Replicas) else tree
+                    return {k: v.detach().cpu() for k, v in tree.items()}
+                return gather_params(tree, self.cfg, "cpu")
+            state = {key: whole(state[key]),
+                     "opt_state": {**self.opt_state,
+                                   "mu": whole(self.opt_state["mu"]),
+                                   "nu": whole(self.opt_state["nu"])}}
+        checkpoint.save_step(self._mgr, self.step, state)
         log.info("checkpointed step %d", self.step)

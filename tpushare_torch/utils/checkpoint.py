@@ -7,6 +7,10 @@ Counterpart of ``tpushare/utils/checkpoint.py``:
   paths; bf16 stored as a uint16 view under a ``__bf16`` suffix), so a
   file written by either package loads in the other (the port's side
   through :func:`tpushare_torch.models.bridge.params_from_numpy`).
+* :func:`save_train_state` / :func:`load_train_state`: a one-shot
+  train state (any tree of dicts, tuples, tensors and numbers) as one
+  ``torch.save`` file in a FRESH directory, which the save refuses to
+  overwrite.
 * :func:`make_checkpoint_manager` / :func:`save_step` /
   :func:`restore_latest`: periodic train-state checkpoints, one
   ``torch.save`` file in a step-numbered directory each (the JAX package
@@ -86,6 +90,75 @@ def load_params(path: str) -> dict:
     the JAX package's ``save_params``), each in its saved dtype."""
     with np.load(path) as z:
         return _unflatten({k: z[k] for k in z.files})
+
+
+# ---------------------------------------------------------------------------
+# one-shot train state
+# ---------------------------------------------------------------------------
+def _plain(tree):
+    """``tree`` with every tuple kind (``Staged``, ``Replicas``, fsdp
+    blocks) a plain tuple and every tensor detached, which a
+    ``weights_only`` load reads back."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_plain(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    return tree
+
+
+def _like(tree, like):
+    """The loaded ``tree`` in ``like``'s structure (its container types)
+    with each tensor on the device of ``like``'s tensor there."""
+    if isinstance(like, dict):
+        if set(tree) != set(like):
+            raise ValueError(f"checkpoint keys {sorted(tree)} are not "
+                             f"like's {sorted(like)}")
+        return {k: _like(tree[k], v) for k, v in like.items()}
+    if isinstance(like, tuple):
+        if len(tree) != len(like):
+            raise ValueError(f"checkpoint holds {len(tree)} parts where "
+                             f"like has {len(like)}")
+        return type(like)(_like(t, v) for t, v in zip(tree, like))
+    if isinstance(like, torch.Tensor):
+        return tree.to(like.device)
+    return tree
+
+
+def save_train_state(ckpt_dir: str, state) -> None:
+    """One-shot save of a train state to a FRESH directory: written under
+    a temporary name beside it, then renamed into place.
+
+    Refuses to overwrite, as the reference does: an overwrite deletes the
+    old checkpoint before the new one is committed, a crash window that
+    loses all state.  Periodic checkpointing must use
+    :func:`make_checkpoint_manager` (step-numbered dirs, retention),
+    which never deletes the old step before the new one is committed."""
+    path = os.path.abspath(ckpt_dir)
+    if os.path.exists(path):
+        raise FileExistsError(
+            f"{path} exists; use make_checkpoint_manager for periodic "
+            f"checkpointing (atomic across overwrites)")
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=parent, prefix=".tmp-")
+    try:
+        torch.save(_plain(state), os.path.join(tmp, STATE_FILE))
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def load_train_state(ckpt_dir: str, like=None):
+    """The state :func:`save_train_state` wrote, its tensors on the host;
+    with ``like`` (a tree of the same layout), in ``like``'s structure
+    with each tensor on ``like``'s device there.  Every tensor comes back
+    bit-equal, int8 and int4 ``{"q", "s"}`` leaves included."""
+    state = torch.load(os.path.join(os.path.abspath(ckpt_dir), STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    return state if like is None else _like(state, like)
 
 
 # ---------------------------------------------------------------------------
