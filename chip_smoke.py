@@ -197,6 +197,21 @@ CUDA toolkit.  Phases, each printing one JSON line:
     at every position against tp = 1 within LOGIT_TOL or 1.25x the tp = 1
     forward's distance from itself on the reference attention); a decode step of 8 rows at tp = 2 and at tp = 1
     (wall, busy, ops), each part's seconds;
+14b. tp_quant: quantized weights split over tp: Llama-3-8B at full width
+    and depth with int8, then grouped int4, weights on the same mesh of
+    two tp shards (int8 ``q`` and int4 ``q4`` blocks by the reference's
+    rule, the scales whole): every tp tree's codes exactly half of the
+    whole tree's bytes; the server phase's four requests over a bf16
+    pool, K2 twice a layer of every paged forward at 16 q and 4 kv heads;
+    first-step and first decode-step logits against a tp = 1 pool on the
+    same weights within LOGIT_TOL or 1.25x its K2-against-gather
+    distance; int4 at tp = 1 against a bf16 model of ``dequantize4`` of
+    the same codes, the same bound on that model; the 8-row decode step
+    at tp = 2 and tp = 1 (wall, busy, ops); then QLoRA on an int8 base at
+    Llama-3-8B's widths and 16 layers on ``{"tp": 2}``, one row of 2049
+    tokens, 2 steps: the first loss within 1e-4 relative of the tp = 1
+    step's, the losses falling, the base unchanged, K1 / K3 / K4 32 a
+    step;
 15. prefix: Llama-2-7B at full width and depth (bf16 random weights,
     32 heads over 32 kv heads: K2 at n_rep = 1) on
     ``LLMServer(n_slots=8, page_size=16, prefix_cache=True)`` (8 x 256
@@ -396,7 +411,9 @@ and ``qlora_launches``, K3/K4 with
 ``paged_attn_verify`` at the verify shape with the spec phase's verify
 launches, and beside them all its S > 1 launches and the prefills' share;
 ``paged_decode_tp_shard`` at the tp phase's per-shard shape with its bf16
-load's decode launches and its int8 and tp x sp ones beside them;
+load's decode launches and its int8 and tp x sp ones beside them, and
+the tp_quant phase's (``tp_quant_launches``); K1, K3 and K4 with
+``tp_qlora_launches``, the tp_quant phase's QLoRA steps;
 ``device_ms``,
 the kernel's own time by the
 profiler, and for K1
@@ -3839,6 +3856,246 @@ def phase_tp(torch, card: str):
     return res
 
 
+#: the tp_quant phase's QLoRA: an int8 base at Llama-3-8B's widths and
+#: TP_QLORA_LAYERS of its layers, rank TP_QLORA_RANK, TP_QLORA_STEPS steps
+#: on one row of TP_QLORA_SEQ tokens; its first loss within TP_QLORA_RTOL
+#: of the tp = 1 step's
+TP_QLORA_LAYERS = 16
+TP_QLORA_RANK = 8
+TP_QLORA_STEPS = 2
+TP_QLORA_SEQ = 2049
+TP_QLORA_LR = 1e-3
+TP_QLORA_RTOL = 1e-4
+
+
+def _codes_bytes(torch, layers) -> int:
+    """The bytes of the int8 / int4 codes (``q``, ``q4``) of every
+    projection of a layers tree (a stacked tree, or one tp tree)."""
+    from tpushare_torch.models import transformer
+
+    total = 0
+    for name in transformer.TP_COL_LEAVES + transformer.TP_ROW_LEAVES:
+        leaf = layers[name]
+        codes = leaf["q4"] if "q4" in leaf else leaf["q"]
+        total += codes.numel() * codes.element_size()
+    return total
+
+
+def _dequantized4(params, dtype):
+    """An int4 tree's every ``{"q4","s"}`` leaf widened by ``dequantize4``
+    to a ``dtype`` tensor: the same codes as a plain model."""
+    from tpushare_torch.ops import quant
+
+    def visit(leaf):
+        if isinstance(leaf, dict) and "q4" in leaf:
+            return quant.dequantize4(leaf, dtype=dtype)
+        if isinstance(leaf, dict):
+            return {k: visit(v) for k, v in leaf.items()}
+        return leaf
+
+    return visit(params)
+
+
+def _tp_quant_qlora(torch) -> dict:
+    """QLoRA on ``{"tp": 2}``: the int8 base at Llama-3-8B's widths and
+    TP_QLORA_LAYERS layers, loraized at rank TP_QLORA_RANK, laid out by
+    ``shard_params`` (every projection's codes split by the reference's
+    rule), ``make_lora_train_step(mesh=, remat="layer")`` for
+    TP_QLORA_STEPS steps on one seeded row of TP_QLORA_SEQ tokens: the
+    first loss within TP_QLORA_RTOL of the tp = 1 step's first loss on
+    the same adapters, the losses falling, every base leaf bit-unchanged,
+    K1 / K3 / K4 2 x TP_QLORA_LAYERS a step (once a layer and tp shard:
+    the remat's recompute keeps K1's saved output); each step's wall and
+    the peak memory."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpushare_torch.models import transformer as tf
+    from tpushare_torch.ops import lora
+    from tpushare_torch.parallel import mesh as pmesh
+    from tpushare_torch.parallel.train import make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(tf.llama3_8b(), n_layers=TP_QLORA_LAYERS)
+    mesh = pmesh.make_mesh({"tp": 2}, devices=["cuda:0"] * 2)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 25).integers(
+        0, cfg.vocab, (1, TP_QLORA_SEQ))).to("cuda")
+    lp = lora.loraize_params(tf.init_params(cfg, seed=SEED, device="cuda",
+                                            quantize_bits=8),
+                             rank=TP_QLORA_RANK, seed=SEED)
+    adapters, frozen = lora.partition(lp)
+    start = {k: v.clone() for k, v in adapters.items()}
+    one = make_optimizer(lr=TP_QLORA_LR)
+    with _k134_counted([0, 0, 0]) as flat_launches:
+        _, _, flat = lora.make_lora_train_step(cfg, one, remat="layer")(
+            lp, one.init(adapters), tokens)
+        flat = flat.item()
+    del lp, adapters
+    placed = pmesh.shard_params(lora.combine(start, frozen), mesh, cfg)
+    check(tf.tp_splits(placed["layers"], cfg, 2)
+          and "q" in placed["layers"][1]["wo"],
+          "tp_quant qlora: the int8 base did not take the tp split")
+    base = []
+    lora._map_tensors(lambda path, t: base.append(t)
+                      if not lora._is_adapter(path) else t, placed)
+    base = list({id(t): t for t in base}.values())
+    before = [t.clone() for t in base]
+    opt = make_optimizer(lr=TP_QLORA_LR)
+    state = opt.init(lora.placed_adapters(placed))
+    step = lora.make_lora_train_step(cfg, opt, remat="layer", mesh=mesh)
+    losses, walls, per_step = [], [], []
+    for _ in range(TP_QLORA_STEPS):
+        with _k134_counted([0, 0, 0]) as got:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            placed, state, loss = step(placed, state, tokens)
+            losses.append(loss.item())
+            walls.append(time.perf_counter() - t0)
+        per_step.append(list(got))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    unchanged = all(torch.equal(a, b) for a, b in zip(before, base))
+    del placed, state, base, before, frozen, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = abs(losses[0] - flat) / abs(flat)
+    check(rel <= TP_QLORA_RTOL,
+          f"tp_quant qlora: first loss {losses[0]!r} is {rel:.3g} from the "
+          f"tp = 1 step's {flat!r}")
+    check(all(np.isfinite(losses)) and all(
+        b < a for a, b in zip(losses, losses[1:])),
+          f"tp_quant qlora: losses {losses} do not fall")
+    check(unchanged, "tp_quant qlora: a base leaf moved")
+    n = cfg.n_layers
+    check(list(flat_launches) == [n] * 3,
+          f"tp_quant qlora: K1/K3/K4 {list(flat_launches)} in the tp = 1 "
+          f"step, not {n}")
+    check(all(c == [2 * n] * 3 for c in per_step),
+          f"tp_quant qlora: K1/K3/K4 a step {per_step}, not {2 * n}")
+    return {"layers": n, "rank": TP_QLORA_RANK, "lr": TP_QLORA_LR,
+            "seq": TP_QLORA_SEQ, "tp1_first_loss": flat, "losses": losses,
+            "first_loss_rel_err": rel, "step_walls_s": walls,
+            "peak_memory_gb": peak_gb,
+            "launches_per_step": {"flash_fwd": per_step[0][0],
+                                  "flash_bwd_dkv": per_step[0][1],
+                                  "flash_bwd_dq": per_step[0][2]},
+            "launches": {k: sum(c[i] for c in per_step) for i, k in
+                         enumerate(("flash_fwd", "flash_bwd_dkv",
+                                    "flash_bwd_dq"))}}
+
+
+def phase_tp_quant(torch, card: str):
+    """Quantized weights split over tp: Llama-3-8B at full width and depth
+    with int8, then grouped int4, weights on ``make_mesh({"tp": 2},
+    devices=["cuda:0"] * 2)``.  For each: every tp tree's projection
+    codes exactly half of the whole tree's bytes (counted from the
+    tensors); the server phase's four requests through a
+    ``ContinuousService`` over a bf16 pool (``_tp_serve``), K2 twice a
+    layer of every paged forward, both arms, every launch at 16 q and 4
+    kv heads; the greedy prompts' first-step and first decode-step
+    logits held to a tp = 1 pool on the same weights within LOGIT_TOL or
+    1.25x that pool's own K2-against-gather distance; the 8-row decode
+    step at TP_STEP_LENS at tp = 2 and tp = 1 (wall, busy, ops; no bar).
+    Int4 at tp = 1 is also held to a bf16 model of ``dequantize4`` of the
+    same codes, within LOGIT_TOL or 1.25x that model's own distance.
+    Then QLoRA on tp (``_tp_quant_qlora``)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tpushare_torch.models import transformer
+    from tpushare_torch.ops import attention as attn
+    from tpushare_torch.parallel.mesh import make_mesh, shard_params
+    from tpushare_torch.serving.llm import build_model
+    from tpushare_torch.serving.paged import PagedContinuousBatcher
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def mark(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    mesh = make_mesh({"tp": 2}, devices=["cuda:0"] * 2)
+    res = {"model": "llama3-8b", "card": card, "tp": 2,
+           "devices": [str(d) for d in mesh.devices], "pages": TP_PAGES}
+    sampled = {"temperature": 0.8, "top_k": 50, "seed": 7}
+    for bits in (8, 4):
+        kind = f"int{bits}"
+        cfg, params = build_model("llama3-8b", seed=SEED, device="cuda",
+                                  quantize_int8=bits == 8,
+                                  quantize_int4=bits == 4)
+        _check_llama3_8b(cfg)
+        check(transformer.tp_splits(params["layers"], cfg, 2),
+              f"tp_quant {kind}: the model does not take the tp split")
+        prompts, _ = _load_prompts(cfg)
+        greedy = prompts[:3]
+        step_prompts = [np.random.default_rng(SEED + 24).integers(
+            0, cfg.vocab, n).tolist() for n in TP_STEP_LENS]
+        whole = _codes_bytes(torch, params["layers"])
+        trees = shard_params(params, mesh, cfg)["layers"]
+        shard_bytes = [_codes_bytes(torch, tree) for tree in trees]
+        del trees
+        check(all(2 * b == whole for b in shard_bytes),
+              f"tp_quant {kind}: codes {shard_bytes} a tp tree against "
+              f"{whole} whole")
+        b, run = _tp_serve(torch, params, cfg, mesh, prompts, sampled)
+        got = run["launches"]
+        mine = ("launches", "launches_decode")
+        check(got[mine[0]] + got[mine[1]] == 2 * cfg.n_layers
+              * run["forwards"] and got[mine[0]] > 0
+              and got[mine[1]] >= 2 * cfg.n_layers * run["decode_steps"],
+              f"tp_quant {kind}: K2 {got} for {run['forwards']} forwards "
+              f"({run['decode_steps']} decode steps)")
+        check(all(n == 0 for k, n in got.items() if k not in mine),
+              f"tp_quant {kind}: another K2 entry point ran: {got}")
+        check(run["launch_heads"] == {"16q/4kv": got[mine[0]]
+                                      + got[mine[1]]},
+              f"tp_quant {kind}: K2 launched at {run['launch_heads']}")
+        run["codes_bytes"] = {"whole": whole, "per_tp_tree": shard_bytes}
+        ref = PagedContinuousBatcher(params, cfg, n_slots=8, page_size=16,
+                                     n_pages=TP_PAGES, device="cuda")
+        noise_b = PagedContinuousBatcher(
+            params, dataclasses.replace(cfg, attn_kernel="gather"),
+            n_slots=8, page_size=16, n_pages=TP_PAGES, device="cuda")
+        run["logits"] = _tp_logits(torch, b, ref, noise_b, greedy,
+                                   f"tp_quant {kind}")
+        check(max(run["logits"]["max_abs_err"]) <= run["logits"]["limit"],
+              f"tp_quant {kind}: logits {run['logits']} past the limit")
+        del noise_b
+        mark(f"{kind}_load_and_logits")
+        run["step"] = {"tp2": _step_profile(b, step_prompts, steps=4),
+                       "tp1": _step_profile(ref, step_prompts, steps=4)}
+        del b
+        mark(f"{kind}_step")
+        if bits == 4:
+            gc.collect()
+            torch.cuda.empty_cache()
+            dq = _dequantized4(params, cfg.dtype)
+            dq_b = PagedContinuousBatcher(dq, cfg, n_slots=8, page_size=16,
+                                          n_pages=TP_PAGES, device="cuda")
+            dq_gather = PagedContinuousBatcher(
+                dq, dataclasses.replace(cfg, attn_kernel="gather"),
+                n_slots=8, page_size=16, n_pages=TP_PAGES, device="cuda")
+            run["vs_dequantized"] = _tp_logits(
+                torch, ref, dq_b, dq_gather, greedy, "tp_quant int4 tp 1")
+            check(max(run["vs_dequantized"]["max_abs_err"])
+                  <= run["vs_dequantized"]["limit"],
+                  f"tp_quant int4: tp = 1 logits "
+                  f"{run['vs_dequantized']} from the dequantized model")
+            del dq, dq_b, dq_gather
+            mark("int4_vs_dequantized")
+        res[kind] = run
+        del ref, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["qlora"] = _tp_quant_qlora(torch)
+    mark("qlora")
+    res["part_s"] = parts
+    return res
+
+
 #: the pp phase: Llama-3-8B's 32 layers on two stages of one card, the
 #: server load through three meshes, a migration across depths (a prompt
 #: of MIGRATE_LENS[2] tokens, PP_MIGRATE_STEPS staged steps), the
@@ -6859,6 +7116,9 @@ def main() -> int:
         tp = run("tp", phase_tp, torch, dev["nvidia_smi"])
         gc.collect()
         torch.cuda.empty_cache()
+        tpq = run("tp_quant", phase_tp_quant, torch, dev["nvidia_smi"])
+        gc.collect()
+        torch.cuda.empty_cache()
         pp = run("pp", phase_pp, torch, dev["nvidia_smi"])
         gc.collect()
         torch.cuda.empty_cache()
@@ -6978,6 +7238,11 @@ def main() -> int:
         "tp_sp_launches": tp["tp_sp"]["launches"]["launches_decode_striped"],
         # the pp phase's {"tp": 2, "pp": 2} load, at the same heads
         "pp_launches": pp["tp_pp"]["launches"]["launches_decode"],
+        # the tp_quant phase's loads on int8 and int4 weights split over
+        # tp, at the same heads
+        "tp_quant_launches": {
+            k: tpq[k]["launches"]["launches_decode"] for k in ("int8",
+                                                               "int4")},
         "max_abs_err": ks["max_abs_err"], "ms": ks["ms"],
         "kernel_ms": ks["ms"], "plain_ms": ks["plain_ms"],
         "bound_ms": ks["bound_ms"], "bound_by": ks["bound_by"],
@@ -6994,6 +7259,8 @@ def main() -> int:
             "replaces": f"tpushare/ops/attention.py:{line}",
             "launches": train["launches"][name],
             "qlora_launches": train["qlora"]["launches"][name],
+            # the tp_quant phase's QLoRA steps on {"tp": 2}
+            "tp_qlora_launches": tpq["qlora"]["launches"][name],
             # the train_sharded phase: the 1F1B gradient and the three
             # sharded trainers
             "train_sharded_launches": shard["launches"][name],
@@ -7061,6 +7328,7 @@ def main() -> int:
          # the ep = 2 server's /score, through the sharded mixture
          "ep_launches": moe["ep"]["server"]["launches"]["flash_fwd"],
          "qlora_launches": train["qlora"]["launches"]["flash_fwd"],
+         "tp_qlora_launches": tpq["qlora"]["launches"]["flash_fwd"],
          # the train_sharded phase: the 1F1B gradient at 4 microbatches,
          # then the sharded trainers' steps
          "train_sharded_launches": shard["launches"]["flash_fwd"],

@@ -11,14 +11,15 @@ against the undivided LoRA step and the JAX package.
 * On ``{"tp": 2}``, ``{"fsdp": 2}``, ``{"dp": 2, "tp": 2}`` and ``{"fsdp":
   2, "tp": 2}``, ``tiny()`` f32 with the reference's loraized tree (``b``
   drawn nonzero): the loss within 1e-5 relative and every adapter
-  gradient within 1e-6 of the undivided step's (an int8 base too, run as
-  tp = 1 with its blocks joined), the frozen base without a gradient;
+  gradient within 1e-6 of the undivided step's (an int8 base too, in
+  its tp blocks), the frozen base without a gradient;
   three AdamW steps at lr 1e-3 leave the adapters within 1e-5 of three
   undivided steps and the base bit-unchanged; and within 2e-4 of three
   of the reference's ``make_lora_train_step`` steps on its own shardings.
-* ``make_lora_train_step`` refuses an int8 or int4 base on a tp mesh
-  (its forward would join the base whole each step; ROADMAP A.19) and
-  trains it on fsdp alone; it refuses a pp mesh.
+* ``make_lora_train_step`` trains an int8 or int4 base on a tp mesh in
+  its blocks, its first step equal to the undivided step's, and on fsdp
+  alone; it refuses a base whose int4 packed rows tp does not divide
+  (its forward would join the base whole each step), and a pp mesh.
 * A rank-8 ``Trainer`` on ``{"fsdp": 2, "tp": 2}``: its first loss is the
   base forward's (``b`` is zero), the losses fall, the base stays, a
   checkpoint holds the whole adapter dict and resumes bit-identically.
@@ -262,25 +263,45 @@ def test_three_steps_equal_undivided_and_jax(axes):
 @pytest.mark.parametrize("base", ["int8", "int4"])
 @pytest.mark.parametrize("axes", [{"tp": 2}, {"fsdp": 2, "tp": 2}], ids=_id)
 def test_lora_step_refuses_a_quantized_base_on_tp(base, axes):
-    """A quantized base takes no tp split, so its forward joins the base
-    whole on tp shard 0: the step refuses, citing ROADMAP A.19, before
-    it computes anything; on fsdp alone it trains."""
+    """A quantized base takes the tp split: the step trains it in its
+    blocks, its loss and adapters equal to the undivided step's, and on
+    fsdp alone.  It refuses, before it computes anything, only a base
+    whose int4 packed rows tp does not divide (groups of 2), which would
+    join its whole base on tp shard 0 each step."""
     _, jp = _jax_lora(base)
-    mesh = port_mesh(**axes)
-    placed = tmesh.shard_params(_bridge(jp), mesh, ttf.tiny())
     opt = ttrain.make_optimizer(lr=1e-3)
+    one = _bridge(jp)
+    ostate = opt.init(lora.partition(one)[0])
+    one, _, want = lora.make_lora_train_step(ttf.tiny(), opt)(
+        one, ostate, torch.from_numpy(_tokens(3)))
+    for axes_ in (axes, {"fsdp": 2}):
+        mesh = port_mesh(**axes_)
+        placed = tmesh.shard_params(_bridge(jp), mesh, ttf.tiny())
+        mopt = ttrain.make_optimizer(lr=1e-3)
+        state = mopt.init(lora.placed_adapters(placed))
+        step = lora.make_lora_train_step(ttf.tiny(), mopt, mesh=mesh)
+        placed, state, loss = step(placed, state,
+                                   torch.from_numpy(_tokens(3)))
+        assert state["count"] == 1
+        np.testing.assert_allclose(float(loss), float(want), rtol=LOSS_RTOL)
+        got = lora.whole_adapters(lora.placed_adapters(placed))
+        for name, t in lora.partition(one)[0].items():
+            np.testing.assert_allclose(got[name].numpy(),
+                                       t.detach().numpy(), rtol=0,
+                                       atol=PARAM_ATOL, err_msg=name)
+    cfg = jtf.tiny()
+    p = jquant.quantize_params(jtf.init_params(jax.random.PRNGKey(0), cfg),
+                               bits=4, group=2)
+    odd = _bridge(jlora.loraize_params(p, rank=RANK,
+                                       adapter_dtype=jnp.float32))
+    mesh = port_mesh(**axes)
+    placed = tmesh.shard_params(odd, mesh, ttf.tiny())
     state = opt.init(lora.placed_adapters(placed))
     step = lora.make_lora_train_step(ttf.tiny(), opt, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A.19"):
+    with pytest.raises(NotImplementedError, match="does not take the tp"):
         step(placed, state, tmesh.shard_batch(torch.from_numpy(_tokens(3)),
                                               mesh))
     assert state["count"] == 0
-    mesh = port_mesh(fsdp=2)
-    placed = tmesh.shard_params(_bridge(jp), mesh, ttf.tiny())
-    state = opt.init(lora.placed_adapters(placed))
-    step = lora.make_lora_train_step(ttf.tiny(), opt, mesh=mesh)
-    _, state, loss = step(placed, state, torch.from_numpy(_tokens(3)))
-    assert state["count"] == 1 and np.isfinite(float(loss))
 
 
 def test_lora_step_refuses_a_pp_mesh():

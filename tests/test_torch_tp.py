@@ -191,17 +191,19 @@ def test_tp_sp_striped_read_matches_jax(s, int8):
     np.testing.assert_allclose(got.numpy(), whole.numpy(), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["tp4_heads", "int8_weights"])
+@pytest.mark.parametrize("case", ["tp4_heads", "int4_half_group"])
 def test_tp_heads_gate_runs_the_model_as_tp_1(case):
     """Where tp does not divide both head counts (tp 4 over tiny()'s 2 kv
-    heads) or the weights are int8 leaves, the batcher runs the model as
+    heads) or an int4 row leaf's packed rows (groups of 2: one packed row
+    a group, which tp 2 cannot split), the batcher runs the model as
     tp = 1 on the mesh's first device: the serving mesh drops the tp
     axis, the params stay whole and the pool holds every kv head there
     (K2 over all heads in one launch on the card); the streams equal a
     batcher's without a mesh."""
     cfg = ttf.tiny(max_seq=96)
-    params = ttf.init_params(cfg, seed=2, device="cpu",
-                             quantize_bits=8 if case == "int8_weights" else 0)
+    params = ttf.init_params(cfg, seed=2, device="cpu")
+    if case == "int4_half_group":
+        params = tq.quantize_params(params, bits=4, group=2)
     tp = 4 if case == "tp4_heads" else 2
     b = PagedContinuousBatcher(params, cfg, n_slots=2, page_size=16,
                                mesh=port_mesh(tp=tp))
@@ -287,9 +289,10 @@ def test_shard_params_is_the_megatron_split_of_jax(bridged):
 
 
 def test_shard_params_keeps_whole_leaves_where_the_split_does_not_fit():
-    """tp 8 divides neither tiny()'s 4 q heads nor its 2 kv heads, and an
-    int8 tree's {"q","s"} leaves are not split: every shard keeps the
-    full-width weights, and the serving mesh drops the tp axis."""
+    """tp 8 divides neither tiny()'s 4 q heads nor its 2 kv heads, and tp
+    2 does not divide the one packed row a group of an int4 tree in
+    groups of 2: every shard keeps the full-width weights, and the
+    serving mesh drops the tp axis.  An int8 tree splits."""
     cfg = ttf.tiny()
     whole = ttf.init_params(cfg, seed=1, device="cpu")
     got = tmesh.shard_params(whole, port_mesh(tp=8), cfg)
@@ -297,15 +300,19 @@ def test_shard_params_keeps_whole_leaves_where_the_split_does_not_fit():
         for name in ttf.TP_COL_LEAVES + ttf.TP_ROW_LEAVES:
             assert torch.equal(tree[name], whole["layers"][name])
     assert ttf.serving_mesh(port_mesh(tp=8), cfg, got["layers"]) is None
-    q8 = ttf.init_params(cfg, seed=1, device="cpu", quantize_bits=8)
-    assert not ttf.tp_splits(q8["layers"], cfg, 2)
-    got8 = tmesh.shard_params(q8, port_mesh(tp=2), cfg)
-    for tree in got8["layers"]:
+    q4 = tq.quantize_params(whole, bits=4, group=2)
+    assert not ttf.tp_splits(q4["layers"], cfg, 2)
+    got4 = tmesh.shard_params(q4, port_mesh(tp=2), cfg)
+    for tree in got4["layers"]:
         for name in ttf.TP_COL_LEAVES + ttf.TP_ROW_LEAVES:
-            for k in ("q", "s"):
-                assert torch.equal(tree[name][k], q8["layers"][name][k])
-    sub = ttf.serving_mesh(port_mesh(tp=2, sp=2), cfg, q8["layers"])
+            for k in ("q4", "s"):
+                assert torch.equal(tree[name][k], q4["layers"][name][k])
+    sub = ttf.serving_mesh(port_mesh(tp=2, sp=2), cfg, q4["layers"])
     assert sub.axis_names == ("sp",) and len(sub.devices) == 2
+    q8 = ttf.init_params(cfg, seed=1, device="cpu", quantize_bits=8)
+    assert ttf.tp_splits(q8["layers"], cfg, 2)
+    assert ttf.serving_mesh(port_mesh(tp=2), cfg, q8["layers"]).shape \
+        == {"tp": 2}
     # a MoE layer's experts never split; its attention does
     moe = dataclasses.replace(cfg, n_experts=4, moe_top_k=2)
     pm = ttf.init_params(moe, seed=1, device="cpu")

@@ -42,8 +42,13 @@ read on dense rows), and its ``wo`` and ``w_down`` row blocks give
 partial products that are summed on the first device (the JAX package's
 ``psum``).  KV storage is one ``(k, v)`` pair a shard of the mesh,
 row-major: under tp x sp, shard (t, s) holds stripe s of tp shard t's
-heads.  A model the split does not fit (:func:`tp_splits`) runs as
-tp = 1 on the first device (:func:`serving_mesh`).
+heads.  Quantized weights split by the reference's rule: an int8 or
+int4 column block takes its columns of the whole scale, an int8 row
+block's partial is scaled by the whole scale, and an int4 row block,
+which holds rows of every group, reads the whole activation, joined from
+the shards (:func:`_row_parts`).  A model the split does not fit
+(:func:`tp_splits`) runs as tp = 1 on the first device
+(:func:`serving_mesh`).
 
 Dense and rolling caches: :func:`forward` with ``kv_caches`` from
 :func:`init_kv_caches` (stacked ``[L, B, Hkv, T, D]`` stores, T = max_seq,
@@ -239,12 +244,13 @@ TP_ROW_LEAVES = ("wo", "w_down")
 
 
 def tp_splits(layers, cfg: ModelConfig, tp: int) -> bool:
-    """Does the model take the Megatron split over ``tp`` shards (the JAX
-    package's ``_composed_tp_ok``)?  tp > 1 dividing both head counts
-    (whole GQA groups a shard) and both feature dims, and every
-    projection a plain tensor: an int8 or int4 leaf's scales are not
-    split, so such a model keeps full-width weights.  ``layers``: the
-    stacked layer leaves, or ``shard_params``' tuple of shard trees."""
+    """Does the model take the Megatron split over ``tp`` shards?  tp > 1
+    dividing both head counts (whole GQA groups a shard) and both
+    feature dims (so d_out of every column leaf), and the packed-row dim
+    ``group/2`` of every int4 row leaf, which its split cuts
+    (``parallel.mesh.shard_params``); an int8 leaf splits wherever a
+    plain one does.  ``layers``: the stacked layer leaves, or
+    ``shard_params``' tuple of shard trees."""
     if tp <= 1:
         return False
     if (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.d_model % tp
@@ -252,10 +258,13 @@ def tp_splits(layers, cfg: ModelConfig, tp: int) -> bool:
         return False
     while isinstance(layers, tuple):     # a stage's part, a tp shard's tree
         layers = layers[0]
-    # a loraized plain base ({"w", "a", "b", "scale"}) splits; a quantized
-    # one does not
-    return not any(isinstance(layers.get(n), dict) and "w" not in layers[n]
-                   for n in TP_COL_LEAVES + TP_ROW_LEAVES)
+    for name, d_in in (("wo", cfg.d_model), ("w_down", cfg.d_ff)):
+        w = layers.get(name)
+        # the whole s [L, g, 1, d_out] gives the group count on any layout
+        if isinstance(w, dict) and "q4" in w and (
+                d_in // (2 * w["s"].shape[-3])) % tp:
+            return False
+    return True
 
 
 def local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
@@ -522,37 +531,16 @@ def _layers(params, tp: int = 1) -> List:
                  else c[l]) for k, c in cols.items()} for l in range(n)]
 
 
-class _HeadMM(torch.autograd.Function):
-    """x [N, d] @ w [d, V] -> f32 logits.  On the card bf16 operands go
-    through one f32-output GEMM (``torch.mm(..., out_dtype=float32)``);
-    elsewhere the product is taken in f32.  The backward takes both grads
-    as products in the operands' dtype (f32 accumulation) from the
-    cotangent cast to that dtype, so no f32 copy of ``w`` is made."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        if x.device.type == "cuda" and x.dtype == w.dtype == torch.bfloat16:
-            return torch.mm(x, w, out_dtype=torch.float32)
-        return torch.mm(x.float(), w.float())
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        dx = g @ w.t() if ctx.needs_input_grad[0] else None
-        dw = x.t() @ g if ctx.needs_input_grad[1] else None
-        return dx, dw
-
-
 def _head_mm(x, w):
     """LM-head projection with f32-accumulated f32 logits: bf16 operands,
     never rounded through bf16 on the way out (near-tie argmaxes stay
-    stable across prefill and decode).  Differentiable (:class:`_HeadMM`).
+    stable across prefill and decode).  Differentiable
+    (``ops.quant.F32Matmul``).
     A quantized head is its product in x's dtype, scaled, then widened to
     f32, as in the JAX package."""
     x2 = x.reshape(-1, x.shape[-1])
-    out = _mm(x2, w).float() if isinstance(w, dict) else _HeadMM.apply(x2, w)
+    out = (_mm(x2, w).float() if isinstance(w, dict)
+           else quant.F32Matmul.apply(x2, w))
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
@@ -619,28 +607,26 @@ def _adapter_layers(adapters, adapter_ids, n_layers: int, dtype) -> List:
             for l in range(n_layers)]
 
 
-def _mm_ad(x, w, lora, name: str, partial: bool = False):
+def _mm_ad(x, w, lora, name: str, partial: bool = False, block=None):
     """``matmul_maybe_q`` plus the per-row adapter delta when this leaf
     carries adapters: the one composition point (a quantized base stays
     inside ``_mm``, QLoRA-style).  ``partial``: a row-parallel tp
-    shard's partial product, returned in f32 for :func:`_tp_sum` (on the
-    card a bf16 product is one GEMM with f32 output, :class:`_HeadMM`,
-    differentiable, so that the partials are rounded once, after their
-    sum, as the whole GEMM rounds), its adapter delta added before the
-    sum."""
-    if partial and isinstance(w, dict) and "w" in w:
+    shard's partial product (:func:`_partial_mm`), returned in f32 for
+    :func:`_tp_sum`, its adapter delta added before the sum; ``block``
+    ``(t, n, whole)``: shard t of n and the whole activation on its
+    device, which an int4 row block reads (``x`` is the shard's own
+    block of it, which the adapters read)."""
+    if partial and isinstance(w, dict) and "a" in w:
         # a loraized base: its partial product, then its adapter delta in
         # f32 beside it
-        y = _mm_ad(x, w["w"], None, name, partial=True)
+        base = {k: v for k, v in w.items() if k not in ("a", "b", "scale")}
+        y = _partial_mm(x, base.get("w", base), block)
         ad = (x @ w["a"].to(x.dtype)) @ w["b"].to(x.dtype)
         y = y + (ad * w["scale"].to(x.dtype)).float()
-    elif not partial:
-        y = _mm(x, w)
-    elif x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        y = _HeadMM.apply(x.reshape(-1, x.shape[-1]), w).reshape(
-            *x.shape[:-1], w.shape[-1])
+    elif partial:
+        y = _partial_mm(x, w, block)
     else:
-        y = _mm(x, w).float()
+        y = _mm(x, w)
     if lora is None:
         return y
     rows, s_rows = lora
@@ -649,6 +635,23 @@ def _mm_ad(x, w, lora, name: str, partial: bool = False):
     a, b = rows[name]
     delta = adapter_delta(x, a, b, s_rows)
     return y + (delta.float() if partial else delta)
+
+
+def _partial_mm(x, w, block=None):
+    """A row-parallel shard's partial product in f32: a plain or int8
+    block ``x @ w`` (on the card a bf16 product is one GEMM with f32
+    output, ``ops.quant.F32Matmul``, so that the partials are
+    rounded once, after their sum, as the whole GEMM rounds), int8 then
+    times the whole ``s``; an int4 block ``ops.quant.q4matmul`` of the
+    whole activation ``block[2]`` at ``row_block=block[:2]``."""
+    if isinstance(w, dict) and "q4" in w:
+        t, n, whole = block
+        return quant.q4matmul(whole, w, row_block=(t, n))
+    base, s = (w["q"], w["s"]) if isinstance(w, dict) else (w, None)
+    y = quant.F32Matmul.apply(x.reshape(-1, x.shape[-1]),
+                              base.to(x.dtype)).reshape(*x.shape[:-1],
+                                                        base.shape[-1])
+    return y if s is None else y * s
 
 
 def _qkv(p, x, cfg: ModelConfig, tables, lora=None):
@@ -705,11 +708,35 @@ def cached_attention(q, kk, vv, positions, window: Optional[int] = None,
     return out.reshape(b, h, s, hd)
 
 
-def ffn_block(p, x, lora=None, partial: bool = False):
+def ffn_block(p, x, lora=None):
+    return _mm_ad(_ffn_hidden(p, x, lora), p["w_down"], lora, "w_down")
+
+
+def _ffn_hidden(p, x, lora=None):
+    """``silu(x @ w_gate) * (x @ w_up)``: the FFN's activation before
+    ``w_down``."""
     g = _mm_ad(x, p["w_gate"], lora, "w_gate")
     u = _mm_ad(x, p["w_up"], lora, "w_up")
-    return _mm_ad(F.silu(g) * u, p["w_down"], lora, "w_down",
-                  partial=partial)
+    return F.silu(g) * u
+
+
+def _row_parts(xs, shards, loras, devs, name: str, split: bool) -> List:
+    """Each tp shard's product of row-parallel leaf ``name`` from its own
+    activation block ``xs[t]`` (its heads' o, its FFN columns), with its
+    adapter delta: partial under a split.  An int4 row block holds rows
+    of every group (``parallel.mesh.shard_params``), so its product reads
+    the whole activation: the shards' blocks joined on shard t's device,
+    the all-gather the reference's program makes."""
+    parts = []
+    for t, (x, lyr, lo, dev) in enumerate(zip(xs, shards, loras, devs)):
+        with on_card(dev):
+            w = lyr[name]
+            block = None
+            if split and isinstance(w, dict) and "q4" in w:
+                block = (t, len(xs),
+                         torch.cat([y.to(dev) for y in xs], dim=-1))
+            parts.append(_mm_ad(x, w, lo, name, partial=split, block=block))
+    return parts
 
 
 def _attn_ffn(layer, x, cfg: ModelConfig, attend, lora=None):
@@ -725,9 +752,9 @@ def _attn_ffn(layer, x, cfg: ModelConfig, attend, lora=None):
     ``attend`` gets its view, its operand, ``xin`` on its device and its
     index, and returns its own heads' o; its ``wo`` rows and its FFN
     (``w_gate``/``w_up`` columns, ``w_down`` rows) give partial products,
-    each with its adapter delta, that :func:`_tp_sum` adds on x's device.
-    The norms run there once.  One layer view is the tp = 1 program, op
-    for op.
+    each with its adapter delta, that :func:`_tp_sum` adds on x's device
+    (:func:`_row_parts`).  The norms run there once.  One layer view is
+    the tp = 1 program, op for op.
 
     Returns ``(x, load)``: a layer with a ``router`` leaf (an
     ``n_experts`` config) runs its FFN through
@@ -744,30 +771,31 @@ def _attn_ffn(layer, x, cfg: ModelConfig, attend, lora=None):
     devs = [_leaf_device(lyr["wo"]) if split else None for lyr in shards]
     b, s, _ = x.shape
     xin = rmsnorm(x, shards[0]["attn_scale"], cfg.norm_eps)
-    parts = []
+    os_ = []
     for t, (lyr, lo, dev) in enumerate(zip(shards, loras, devs)):
         with on_card(dev):
             o = attend(lyr, xin.to(dev) if split else xin, lo, t)
-            o = o.transpose(1, 2).reshape(b, s, -1)
-            parts.append(_mm_ad(o, lyr["wo"], lo, "wo", partial=split))
-    x = x + _tp_sum(parts, x)
+            os_.append(o.transpose(1, 2).reshape(b, s, -1))
+    x = x + _tp_sum(_row_parts(os_, shards, loras, devs, "wo", split), x)
     xn = rmsnorm(x, shards[0]["ffn_scale"], cfg.norm_eps)
     if "router" in shards[0]:
         ep_axis = ("ep" if isinstance(shards[0]["moe_gate"], ExpertBlocks)
                    else None)
         y, load = moe_ffn_shard(xn, shards[0], cfg, ep_axis=ep_axis)
         return x + y, load
-    parts = []
+    hs = []
     for lyr, lo, dev in zip(shards, loras, devs):
         with on_card(dev):
-            parts.append(ffn_block(lyr, xn.to(dev) if split else xn,
-                                   lora=lo, partial=split))
-    return x + _tp_sum(parts, x), None
+            hs.append(_ffn_hidden(lyr, xn.to(dev) if split else xn, lo))
+    return x + _tp_sum(_row_parts(hs, shards, loras, devs, "w_down",
+                                  split), x), None
 
 
 def _leaf_device(w) -> torch.device:
     """Where a weight leaf (a tensor or a weight dict) lies."""
-    return (w["w"] if isinstance(w, dict) else w).device
+    if isinstance(w, dict):
+        w = next(w[k] for k in ("w", "q", "q4") if k in w)
+    return w.device
 
 
 def _sum_loads(loads):

@@ -193,12 +193,13 @@ def make_lora_train_step(cfg, optimizer, remat: str = "none",
     ``optimizer.init(placed_adapters(params))``, and each dp shard runs
     its rows with its replica, fsdp blocks gathered and tp shards through
     the forward's (``parallel.train.sharded_loss_and_grads``).  A ``pp``
-    mesh raises: the 1F1B step differentiates whole stage params.  So
-    does, at the step, a ``tp`` axis the model does not take the split
-    over (``models.transformer.tp_splits``: an int8 or int4 base, or
-    heads or feature dims tp does not divide): that forward runs as tp =
-    1 and would join every tp block of the base on tp shard 0 each step
-    (ROADMAP A.19)."""
+    mesh raises: the 1F1B step differentiates whole stage params.  An
+    int8 or int4 base trains on tp in its blocks, as a plain one does.
+    At the step, a ``tp`` axis the model does not take the split over
+    raises (``models.transformer.tp_splits``: heads, feature dims or an
+    int4 row leaf's ``group/2`` tp does not divide): that forward runs as
+    tp = 1 and would join every tp block of the base on tp shard 0 each
+    step."""
     from ..parallel.train import make_loss_fn, sharded_loss_and_grads
 
     if mesh is not None and "pp" in mesh.axis_names:
@@ -248,10 +249,9 @@ def _refuse_unsplit_tp(params, cfg, mesh):
     if tp > 1 and not tp_splits(tree["layers"], cfg, tp):
         raise NotImplementedError(
             f"LoRA training on tp {tp}: this model does not take the tp "
-            "split (an int8 or int4 base, or heads or feature dims tp does "
-            "not divide), so each step would join its whole base on tp "
-            "shard 0; the quantized base's split waits for ROADMAP A.19 "
-            "(train it on a mesh without tp)")
+            "split (heads, feature dims or an int4 row leaf's group/2 "
+            "that tp does not divide), so each step would join its whole "
+            "base on tp shard 0 (train it on a mesh without tp)")
 
 
 def placed_adapters(params):

@@ -144,9 +144,18 @@ def dequantize4(qw: Dict, dtype=torch.bfloat16) -> torch.Tensor:
     return w.reshape(*lead, g * group, d_out).to(dtype)
 
 
-def q4matmul(x: torch.Tensor, qw: Dict) -> torch.Tensor:
+def q4matmul(x: torch.Tensor, qw: Dict, row_block=None) -> torch.Tensor:
     """Grouped int4 product with the scales on the per-group partials:
-    y = sum_g s_g * (x_lo_g @ lo_g + x_hi_g @ hi_g), in x's dtype."""
+    y = sum_g s_g * (x_g @ w_g), w_g group g's rows (the low nibbles,
+    then the high ones: the group's row order), each group's partial an
+    f32-output product (:class:`F32Matmul`), scaled and summed over the
+    groups in f32, then rounded once to x's dtype.
+
+    ``row_block`` ``(t, n)``: ``qw["q4"]`` is block t of n of the
+    packed-row dim (the reference's tp split of a row-parallel leaf:
+    rows ``{j, j + group/2 : j in block t}`` of every group) beside the
+    whole ``s``, and ``x`` the whole activation; the block's partial
+    product, left in f32."""
     if qw["q4"].ndim != 3:
         raise ValueError(
             f"q4matmul takes one layer's packed weight (ndim 3), got "
@@ -154,12 +163,38 @@ def q4matmul(x: torch.Tensor, qw: Dict) -> torch.Tensor:
             "before the matmul")
     lo, hi = _unpack4(qw["q4"])                    # [g, k, d_out]
     g, k = lo.shape[-3], lo.shape[-2]
+    w = torch.cat([lo, hi], dim=-2).to(x.dtype)    # [g, 2k, d_out]
     lead = x.shape[:-1]
-    xg = x.reshape(*lead, g, 2, k)                 # halves of each group
-    yl = torch.einsum("...gk,gkd->...gd", xg[..., 0, :], lo.to(x.dtype))
-    yh = torch.einsum("...gk,gkd->...gd", xg[..., 1, :], hi.to(x.dtype))
-    y = (yl + yh) * qw["s"][..., 0, :].to(x.dtype)
-    return y.sum(dim=-2)
+    t, n = row_block or (0, 1)
+    xg = x.reshape(-1, g, 2, k * n)[..., t * k:(t + 1) * k]
+    xg = xg.reshape(-1, g, 2 * k).transpose(0, 1)  # [g, N, 2k]
+    y = (F32Matmul.apply(xg, w) * qw["s"]).sum(dim=0)
+    y = y.reshape(*lead, y.shape[-1])
+    return y if row_block is not None else y.to(x.dtype)
+
+
+class F32Matmul(torch.autograd.Function):
+    """a @ b -> f32, 2-D or batched 3-D.  On the card bf16 operands go
+    through one f32-output GEMM (``out_dtype=float32``); elsewhere the
+    product is taken in f32.  The backward takes both grads as products
+    in the operands' dtype (f32 accumulation) from the cotangent cast to
+    that dtype, so no f32 copy of ``b`` is made."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cuda" and a.dtype == b.dtype == torch.bfloat16:
+            mm = torch.mm if a.dim() == 2 else torch.bmm
+            return mm(a, b, out_dtype=torch.float32)
+        return torch.matmul(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = g @ b.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        db = a.transpose(-1, -2) @ g if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 def matmul_maybe_q(x: torch.Tensor, w) -> torch.Tensor:

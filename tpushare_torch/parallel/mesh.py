@@ -359,10 +359,16 @@ def shard_params(params, mesh: Mesh, cfg):
     runs (a later multi-card slice may split ``lm_head`` by vocab, as the
     JAX package's rules do).
 
+    An int8 ``{"q","s"}`` or int4 ``{"q4","s"}`` leaf splits by the
+    reference's rule for its parent (:func:`_dict_trees`): ``q`` takes
+    block t of d_out (column) or d_in (row), int4's ``q4 [L, g,
+    group/2, d_out]`` block t of d_out (column) or of the packed-row dim
+    ``group/2`` of every group (row), and ``s`` stays whole on every
+    shard's device.
+
     The split is taken only where ``transformer.tp_splits`` holds: tp
     dividing ``n_heads``, ``n_kv_heads``, ``d_model`` and ``d_ff``, and
-    every projection a plain tensor.  Otherwise (an int8 or int4
-    ``{"q","s"}`` leaf, an indivisible count) every tree holds the
+    ``group/2`` of an int4 row leaf.  Otherwise every tree holds the
     full-width weights, which preserves every value, and the forwards run
     the model as tp = 1 on the first device.
 
@@ -380,7 +386,8 @@ def shard_params(params, mesh: Mesh, cfg):
     leaves the pool whole (``ep_experts``).
 
     ``fsdp``: each plain tensor leaf :data:`FSDP_DIMS` names (after its tp
-    block is taken) becomes an :class:`FsdpBlocks` of one block an fsdp
+    block is taken; the ``q`` or ``q4`` of a quantized leaf tp splits, on
+    its rule's other dim) becomes an :class:`FsdpBlocks` of one block an fsdp
     shard on ``mesh.device(fsdp=f, tp=t)``, ``embed`` and ``lm_head`` on
     ``mesh.device(fsdp=f)``; where fsdp does not divide the dim the leaf
     stays whole on fsdp shard 0's device, the reference's legalization.
@@ -463,15 +470,19 @@ def lora_member_dims(name: str) -> Tuple[int, int]:
 LORA_WHOLE_MEMBERS = ("s", "scale")
 
 
-def _lora_trees(name: str, leaf, mesh: Mesh, put: _Placer, tp: int) -> list:
-    """A loraized leaf laid out by the reference's rule, one dict a tp
-    shard: a member whose tp dim tp divides is a :class:`TpBlocks` (the
-    same object in every shard's dict), one fsdp divides splits into
-    :class:`FsdpBlocks` on its fsdp dim, each legalized apart as the
-    reference's shardings are; ``s``, ``scale`` and what neither divides
-    lie whole on each shard's device."""
+def _dict_trees(name: str, leaf, mesh: Mesh, put: _Placer, tp: int) -> list:
+    """A weight dict (a loraized leaf, or an int8 ``{"q","s"}`` / int4
+    ``{"q4","s"}`` one) laid out by the reference's rule for its parent
+    (:func:`lora_member_dims`), one dict a tp shard: a member whose tp dim
+    tp divides takes block t (a loraized leaf's as a :class:`TpBlocks`,
+    the same object in every shard's dict; a quantized leaf's block t
+    alone), one fsdp divides splits into :class:`FsdpBlocks` on its fsdp
+    dim, each legalized apart as the reference's shardings are; ``s``,
+    ``scale`` and what neither divides lie whole on each shard's
+    device."""
     n_f = mesh.shape["fsdp"] if "fsdp" in mesh.axis_names else 1
     tp_dim, f_dim = lora_member_dims(name)
+    shared = is_loraized(leaf)
 
     def fsdp_put(y, t):
         if n_f == 1 or y.shape[f_dim] % n_f:
@@ -487,10 +498,13 @@ def _lora_trees(name: str, leaf, mesh: Mesh, put: _Placer, tp: int) -> list:
             for t in range(tp):
                 trees[t][key] = put(x, shard_device(mesh, tp=t))
         elif tp > 1 and x.shape[tp_dim] % tp == 0:
-            blocks = (TpBlocks if tp_dim == -2 else TpBlocksLast)(
-                fsdp_put(_split(x, tp_dim, t, tp), t) for t in range(tp))
+            blocks = [fsdp_put(_split(x, tp_dim, t, tp), t)
+                      for t in range(tp)]
+            if shared:
+                blocks = [(TpBlocks if tp_dim == -2 else TpBlocksLast)(
+                    blocks)] * tp
             for t in range(tp):
-                trees[t][key] = blocks
+                trees[t][key] = blocks[t]
         else:
             for t in range(tp):
                 trees[t][key] = fsdp_put(x, t)
@@ -499,21 +513,24 @@ def _lora_trees(name: str, leaf, mesh: Mesh, put: _Placer, tp: int) -> list:
 
 def tp_compute_tree(tree, t: Optional[int]):
     """Tp shard t's tree of :func:`shard_params`' layout (its fsdp blocks
-    gathered) as the forward computes with it: each :class:`TpBlocks`
+    gathered) as the forward computes with it.  Each :class:`TpBlocks`
     member of a loraized leaf is block t where the shard's product splits
     that way (the base, and the adapter half on the split dim: ``b`` of
     a column target, ``a`` of a row one) and the blocks joined on block
     t's device otherwise (the other half, split on the rank: the
-    all-gather the reference's program makes).  ``t`` None: every member
-    joined whole on block 0's device, the model run as tp = 1 (a forward
-    may evaluate such a tree; ``ops.lora.make_lora_train_step`` refuses
-    to train it, ROADMAP A.19).  The join is ``torch.cat``, so each block
-    gets its slice of the gradient."""
-    if not any(is_loraized(v) for v in tree.values()):
+    all-gather the reference's program makes).  A quantized column block
+    (int8 ``q``, int4 ``q4`` holding d_out columns ``[t*w, (t+1)*w)``)
+    takes those columns of the whole ``s``, a view; a row block keeps
+    the whole ``s``.  ``t`` None: every member joined whole on block 0's
+    device, the model run as tp = 1 (a model :func:`~tpushare_torch.
+    models.transformer.tp_splits` refuses; ``ops.lora.
+    make_lora_train_step`` refuses to train it).  The join is
+    ``torch.cat``, so each block gets its slice of the gradient."""
+    if not any(isinstance(v, dict) for v in tree.values()):
         return tree
     out = dict(tree)
     for name, leaf in tree.items():
-        if not is_loraized(leaf):
+        if not isinstance(leaf, dict):
             continue
         # the adapter half split on the rank
         ranked = "a" if name in ADAPTER_COL_TARGETS else "b"
@@ -526,6 +543,12 @@ def tp_compute_tree(tree, t: Optional[int]):
             else:
                 dev = x[0 if t is None else t].device
                 view[key] = torch.cat([b.to(dev) for b in x], x.dim)
+        base = view.get("q", view.get("q4"))
+        if (t is not None and base is not None
+                and name in ADAPTER_COL_TARGETS
+                and base.shape[-1] != view["s"].shape[-1]):
+            w = base.shape[-1]
+            view["s"] = view["s"].narrow(-1, t * w, w)
         out[name] = view
     return out
 
@@ -533,16 +556,18 @@ def tp_compute_tree(tree, t: Optional[int]):
 def _tp_trees(layers, mesh: Mesh, cfg, put: _Placer) -> tuple:
     """One tree of layer leaves a tp shard of ``mesh`` (one tree on a
     mesh without a tp axis): :func:`shard_params`' tp layout, each leaf
-    split further over ``fsdp``; a loraized leaf by
-    :func:`_lora_trees`."""
+    split further over ``fsdp``; a loraized leaf, and a quantized one
+    where the model takes the split, by :func:`_dict_trees`."""
     from ..models import transformer
 
     tp = mesh.shape.get("tp", 1)
     split = transformer.tp_splits(layers, cfg, tp)
     trees = [{} for _ in range(tp)]
     for name, leaf in layers.items():
-        if is_loraized(leaf):
-            for tree, part in zip(trees, _lora_trees(name, leaf, mesh, put,
+        if is_loraized(leaf) or (split and isinstance(leaf, dict) and name
+                                 in transformer.TP_COL_LEAVES
+                                 + transformer.TP_ROW_LEAVES):
+            for tree, part in zip(trees, _dict_trees(name, leaf, mesh, put,
                                                      tp)):
                 tree[name] = part
     for t in range(tp):
@@ -605,9 +630,17 @@ def _whole_layers(layers, cfg, device):
     for name, leaf in layers[0].items():
         if split and not is_loraized(leaf) and name in \
                 transformer.TP_COL_LEAVES + transformer.TP_ROW_LEAVES:
-            dim = -1 if name in transformer.TP_COL_LEAVES else -2
-            out[name] = torch.cat([whole_leaf(tree[name], device)
-                                   for tree in layers], dim)
+            dim = lora_member_dims(name)[0]
+
+            def cat(key=None):
+                return torch.cat([whole_leaf(tree[name] if key is None
+                                             else tree[name][key], device)
+                                  for tree in layers], dim)
+
+            out[name] = ({k: (whole_leaf(x, device)
+                              if k in LORA_WHOLE_MEMBERS else cat(k))
+                          for k, x in leaf.items()}
+                         if isinstance(leaf, dict) else cat())
         else:
             out[name] = whole_leaf(leaf, device)
     return out

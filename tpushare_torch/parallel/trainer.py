@@ -50,7 +50,8 @@ class Trainer:
     (:func:`~tpushare_torch.parallel.train.lm_loss`).  ``lora_rank`` > 0
     trains rank-``lora_rank`` adapters (scale ``lora_alpha / lora_rank``)
     on every projection the tree has, the base frozen; on any mesh but
-    a ``pp`` one."""
+    a ``pp`` one.  ``quantize_bits`` 8 or 4 (with ``lora_rank`` only)
+    draws that base int8 or int4 (``transformer.init_params``): QLoRA."""
 
     def __init__(self, cfg: transformer.ModelConfig, mesh=None,
                  ckpt_dir: Optional[str] = None,
@@ -61,7 +62,8 @@ class Trainer:
                  schedule: str = "constant", warmup_steps: int = 0,
                  total_steps: int = 0, grad_clip_norm: float = 0.0,
                  lora_rank: int = 0, lora_alpha: float = 16.0,
-                 head_chunk: int = 0, device=None):
+                 head_chunk: int = 0, device=None,
+                 quantize_bits: int = 0):
         if mesh is not None and not isinstance(mesh, Mesh):
             raise ValueError(f"mesh must be a tpushare_torch.parallel.mesh"
                              f".Mesh (make_mesh), got {type(mesh).__name__}")
@@ -69,9 +71,13 @@ class Trainer:
         if lora_rank > 0 and pp:
             raise ValueError("lora_rank with a pp mesh is not supported (the "
                              "1F1B step differentiates whole stage params)")
+        if quantize_bits and lora_rank <= 0:
+            raise ValueError("a quantized base trains adapters only: "
+                             "quantize_bits needs lora_rank > 0")
         self.cfg = cfg
         self.mesh = mesh
         self.lora_rank = lora_rank
+        self.quantize_bits = quantize_bits
         self.lora_alpha = lora_alpha
         self.device = (mesh.device() if mesh is not None
                        else default_device(device))
@@ -131,7 +137,8 @@ class Trainer:
     def _fresh_params(self, seed: int):
         """The seeded params, loraized when adapters train."""
         params = transformer.init_params(self.cfg, seed=seed,
-                                         device=self.device)
+                                         device=self.device,
+                                         quantize_bits=self.quantize_bits)
         if self.lora_rank > 0:
             params = lora.loraize_params(params, rank=self.lora_rank,
                                          alpha=self.lora_alpha)
